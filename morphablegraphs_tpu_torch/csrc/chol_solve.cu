@@ -9,24 +9,17 @@
 // batch is 3.2 MB in and ~11 MFLOP; the recurrence is k sequential column
 // steps per system.  The design gives each character one warp and keeps its
 // k x k factor in shared memory (3.1 KB per warp, 8 warps per block) instead
-// of registers, where a per-thread factor would spill.  Lanes split the rows
-// of each column update (left-looking: row i's dot product with row j over
-// the finished columns), then forward and back substitution reduce each
-// row's dot product across the warp with shuffles.  The 1e-12 floor under
-// the square root matches the TPU kernel, so an all-zero (padded) system
-// solves to x = 0.
+// of registers, where a per-thread factor would spill.  The factorization
+// and both substitutions are the warp routine of warp_chol.cuh, which the
+// fused LM step (kernel B4) shares.
 
 #include <cuda_runtime.h>
+
+#include "warp_chol.cuh"
 
 namespace {
 
 constexpr int WARPS = 8;
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
 
 __global__ void chol_solve_kernel(const float* __restrict__ a,
                                   const float* __restrict__ g,
@@ -39,38 +32,9 @@ __global__ void chol_solve_kernel(const float* __restrict__ a,
   float* y = L + k * k;
   float* xs = y + k;
   const float* A = a + (size_t)ch * k * k;
-  const float* G = g + (size_t)ch * k;
   for (int i = lane; i < k * k; i += 32) L[i] = A[i];
   __syncwarp();
-
-  for (int j = 0; j < k; ++j) {
-    float s = L[j * k + j];
-    for (int p = 0; p < j; ++p) s -= L[j * k + p] * L[j * k + p];
-    const float d = sqrtf(fmaxf(s, 1e-12f));
-    for (int i = j + 1 + lane; i < k; i += 32) {
-      float v = L[i * k + j];
-      for (int p = 0; p < j; ++p) v -= L[i * k + p] * L[j * k + p];
-      L[i * k + j] = v / d;
-    }
-    __syncwarp();
-    if (lane == 0) L[j * k + j] = d;
-    __syncwarp();
-  }
-
-  for (int i = 0; i < k; ++i) {
-    float part = 0.f;
-    for (int p = lane; p < i; p += 32) part += L[i * k + p] * y[p];
-    part = warp_sum(part);
-    if (lane == 0) y[i] = (G[i] - part) / L[i * k + i];
-    __syncwarp();
-  }
-  for (int i = k - 1; i >= 0; --i) {
-    float part = 0.f;
-    for (int p = i + 1 + lane; p < k; p += 32) part += L[p * k + i] * xs[p];
-    part = warp_sum(part);
-    if (lane == 0) xs[i] = (y[i] - part) / L[i * k + i];
-    __syncwarp();
-  }
+  mg::warp_chol_solve(L, g + (size_t)ch * k, y, xs, k, lane);
   for (int i = lane; i < k; i += 32) x[(size_t)ch * k + i] = xs[i];
 }
 

@@ -1,12 +1,24 @@
-// Locomotion candidate scoring (kernel B1).
+// Locomotion candidate scoring (kernel B1) and its end-effector variant
+// (kernel B3).
 //
-// Replaces the TPU kernel morphablegraphs_tpu/ops/pallas_kernels.py
-// `score_locomotion_candidates` (`_score_loco_kernel` + `_loco_score_body`).
-// For every candidate latent of every character it evaluates the 19 root
-// frames M'·[alpha; 1], aligns them to the previous step from the candidate's
-// own frame 0, and sums the goal-keyframe XZ distance, the 2D direction error
-// in degrees (the same polynomial atan2 as the TPU kernel) and 16 advancing
-// closest-point distances against the character's arc table.
+// Replaces the TPU kernels morphablegraphs_tpu/ops/pallas_kernels.py
+// `score_locomotion_candidates` (`_score_loco_kernel` + `_loco_score_body`,
+// and with a chain `_score_loco_ee_kernel`).  For every candidate latent of
+// every character it evaluates the 19 root frames M'·[alpha; 1], aligns them
+// to the previous step from the candidate's own frame 0, and sums the
+// goal-keyframe XZ distance, the 2D direction error in degrees (the same
+// polynomial atan2 as the TPU kernel) and 16 advancing closest-point
+// distances against the character's arc table.  B3 (EE = true) adds one
+// position-only end-effector keyframe: the operator's extra rows give the
+// raw root translation and each chain joint's local quaternion at the
+// keyframe, and each thread walks the ancestor chain for its own candidate
+// (the chain table [L, 8] staged in shared memory), in fk_global's
+// composition order with unnormalized quaternions, exactly as the TPU
+// kernel: the aligning rotation enters as the half-angle quaternion (c2, s2)
+// of (ct, st), a fixed joint takes its rest rotation, and the distance is
+// sqrt(max(., 1e-12)).  B3's extra rows cost 32 x 26 floats (3.3 KB) of
+// shared memory and ~L rotate-multiply pairs per candidate, next to the
+// searches below.
 //
 // What bounds it on the H100: not memory (a character's operator is 16 KB,
 // its arc table at most 24 KB, a candidate's latent 100 B) but the
@@ -50,18 +62,20 @@ __device__ __forceinline__ float table_d2(const float* t, float px, float py,
   return __fadd_rn(__fsub_rn(t[5], __fmul_rn(2.f, cross)), pn2);
 }
 
+template <bool EE>
 __global__ void score_loco_kernel(const float* __restrict__ mop,
                                   const float* __restrict__ alphas,
                                   const float* __restrict__ table,
                                   const float* __restrict__ cfg,
+                                  const float* __restrict__ chain,
                                   float* __restrict__ out, int n, int k,
-                                  int g8) {
+                                  int g8, int rows, int depth) {
   extern __shared__ float smem[];
   const int k1 = k + 1;
-  const int rows = N_EVAL * CH;
   float* s_mop = smem;                  // [rows, k1]
   float* s_alpha = s_mop + rows * k1;   // [k1, N_BLK]
   float* s_tab = s_alpha + k1 * N_BLK;  // [g8, TAB_W]
+  float* s_chain = s_tab + g8 * TAB_W;  // [depth, 8] (EE)
   const int c = blockIdx.y;
   const int tid = threadIdx.x;
   const size_t cand0 = (size_t)c * n + (size_t)blockIdx.x * N_BLK;
@@ -81,6 +95,8 @@ __global__ void score_loco_kernel(const float* __restrict__ mop,
     t[4] = tab_c[r * 5 + 4];
     t[5] = x * x + y * y + z * z;
   }
+  if (EE)
+    for (int i = tid; i < depth * 8; i += N_BLK) s_chain[i] = chain[i];
   __syncthreads();
 
   auto row = [&](int r) {
@@ -180,8 +196,77 @@ __global__ void score_loco_kernel(const float* __restrict__ mop,
     min_arc = arc_sel;
   }
 
-  out[cand0 + tid] = kf_active * kf_w * kf_err + dir_active * dir_w * dir_err +
-                     traj_active * traj_w * traj_sum / 16.f;
+  float err = kf_active * kf_w * kf_err + dir_active * dir_w * dir_err +
+              traj_active * traj_w * traj_sum / 16.f;
+
+  if (EE) {
+    // aligned raw root position at the ee keyframe (root offset shifted
+    // out, as the table and the cfg target are)
+    const int eb = N_EVAL * CH;
+    float e0 = row(eb), e2 = row(eb + 2);
+    float px = ct * e0 + st * e2 + dx;
+    float pz = -st * e0 + ct * e2 + dz;
+    float py = row(eb + 1) + dy;
+    // q_acc = q_y(theta) * q_root, q_y from the half angle of (ct, st)
+    float c2 = sqrtf(fmaxf((1.f + ct) * 0.5f, 0.f));
+    float s2 = sqrtf(fmaxf((1.f - ct) * 0.5f, 0.f));
+    if (!(st >= 0.f)) s2 = -s2;
+    float lq[4];
+    auto local_q = [&](int d) {
+      const float* cd = s_chain + d * 8;
+      for (int i = 0; i < 4; ++i)
+        lq[i] = cd[7] > 0.f ? row(eb + 3 + 4 * d + i) : cd[3 + i];
+    };
+    local_q(0);
+    float aw = c2 * lq[0] - s2 * lq[2];
+    float ax = c2 * lq[1] + s2 * lq[3];
+    float ay = c2 * lq[2] + s2 * lq[0];
+    float az = c2 * lq[3] - s2 * lq[1];
+    for (int d = 1; d < depth; ++d) {
+      const float* cd = s_chain + d * 8;
+      const float ox = cd[0], oy = cd[1], oz = cd[2];
+      // rotate_vec(q_acc, off) = v + 2 (w u x v + u x (u x v))
+      float uvx = ay * oz - az * oy;
+      float uvy = az * ox - ax * oz;
+      float uvz = ax * oy - ay * ox;
+      float uuvx = ay * uvz - az * uvy;
+      float uuvy = az * uvx - ax * uvz;
+      float uuvz = ax * uvy - ay * uvx;
+      px = px + ox + 2.f * (aw * uvx + uuvx);
+      py = py + oy + 2.f * (aw * uvy + uuvy);
+      pz = pz + oz + 2.f * (aw * uvz + uuvz);
+      local_q(d);
+      float nw = aw * lq[0] - ax * lq[1] - ay * lq[2] - az * lq[3];
+      float nx = aw * lq[1] + ax * lq[0] + ay * lq[3] - az * lq[2];
+      float ny = aw * lq[2] - ax * lq[3] + ay * lq[0] + az * lq[1];
+      float nz = aw * lq[3] + ax * lq[2] - ay * lq[1] + az * lq[0];
+      aw = nw; ax = nx; ay = ny; az = nz;
+    }
+    float ddx = (px - cf[33]) * cf[36];
+    float ddy = (py - cf[34]) * cf[37];
+    float ddz = (pz - cf[35]) * cf[38];
+    err += cf[31] * cf[32] *
+           sqrtf(fmaxf(ddx * ddx + ddy * ddy + ddz * ddz, 1e-12f));
+  }
+  out[cand0 + tid] = err;
+}
+
+template <bool EE>
+int launch(const float* mop, const float* alphas, const float* table,
+           const float* cfg, const float* chain, float* out, int c, int n,
+           int k, int g8, int depth, void* stream) {
+  const int rows = N_EVAL * CH + (EE ? ((3 + 4 * depth + 7) / 8) * 8 : 0);
+  size_t smem = sizeof(float) *
+                ((size_t)rows * (k + 1) + (size_t)(k + 1) * N_BLK +
+                 (size_t)g8 * TAB_W + (EE ? (size_t)depth * 8 : 0));
+  cudaError_t err = cudaFuncSetAttribute(
+      score_loco_kernel<EE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(n / N_BLK, c);
+  score_loco_kernel<EE><<<grid, N_BLK, smem, (cudaStream_t)stream>>>(
+      mop, alphas, table, cfg, chain, out, n, k, g8, rows, depth);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -189,15 +274,14 @@ __global__ void score_loco_kernel(const float* __restrict__ mop,
 extern "C" int mg_score_loco(const float* mop, const float* alphas,
                              const float* table, const float* cfg, float* out,
                              int c, int n, int k, int g8, void* stream) {
-  size_t smem = sizeof(float) *
-                ((size_t)N_EVAL * CH * (k + 1) + (size_t)(k + 1) * N_BLK +
-                 (size_t)g8 * TAB_W);
-  cudaError_t err = cudaFuncSetAttribute(
-      score_loco_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(n / N_BLK, c);
-  score_loco_kernel<<<grid, N_BLK, smem, (cudaStream_t)stream>>>(
-      mop, alphas, table, cfg, out, n, k, g8);
-  return (int)cudaGetLastError();
+  return launch<false>(mop, alphas, table, cfg, nullptr, out, c, n, k, g8, 0,
+                       stream);
+}
+
+extern "C" int mg_score_loco_ee(const float* mop, const float* alphas,
+                                const float* table, const float* cfg,
+                                const float* chain, float* out, int c, int n,
+                                int k, int g8, int depth, void* stream) {
+  return launch<true>(mop, alphas, table, cfg, chain, out, c, n, k, g8, depth,
+                      stream);
 }

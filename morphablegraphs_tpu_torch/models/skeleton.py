@@ -1,4 +1,4 @@
-"""Skeleton topology, BVH parsing and root forward kinematics (port of
+"""Skeleton topology, BVH parsing and forward kinematics (port of
 morphablegraphs_tpu.models.skeleton).
 
 Frame layout: [root_tx, root_ty, root_tz, q_joint0 (w,x,y,z), q_joint1, ...]
@@ -8,10 +8,13 @@ for the animated joints in skeleton order; length 3 + 4 * n_animated.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Optional
 
 import numpy as np
 import torch
+
+from ..ops import quat
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,8 +172,13 @@ def load_bvh(path_or_text: str):
 
 
 # ---------------------------------------------------------------------------
-# Forward kinematics (root only: the locomotion slice reads no other joint)
+# Forward kinematics
 # ---------------------------------------------------------------------------
+#
+# Every function composes local transforms in the JAX package's order
+# (pos = parent pos + rotate(parent ori, offset), ori = parent ori * local)
+# with deliberately unnormalized quaternions, batches over any leading axes
+# and writes nothing in place, so torch.func transforms run through it.
 
 def _fk_tables(skel: Skeleton):
     """Per node, the index of its quaternion block in the frame vector, or
@@ -188,6 +196,86 @@ def _rest_table(skel: Skeleton) -> np.ndarray:
         out[:, 0] = 1.0
         return out
     return np.asarray(skel.rest_rotations, np.float32)
+
+
+def fk_global(skel: Skeleton, frames: torch.Tensor):
+    """Global transforms of every node.  frames [..., 3 + 4J] ->
+    (positions [..., n_nodes, 3], orientations [..., n_nodes, 4])."""
+    anim_idx = _fk_tables(skel)
+    lead = frames.shape[:-1]
+    quats = frames[..., 3:].reshape(lead + (skel.n_animated, 4))
+    offsets = torch.as_tensor(skel.offsets, dtype=frames.dtype,
+                              device=frames.device)
+    rest = torch.as_tensor(_rest_table(skel), dtype=frames.dtype,
+                           device=frames.device)
+    pos_list, ori_list = [], []
+    for i in range(skel.n_nodes):
+        parent = skel.parents[i]
+        local_q = (quats[..., anim_idx[i], :] if anim_idx[i] >= 0
+                   else rest[i].expand(lead + (4,)))
+        off = offsets[i].expand(lead + (3,))
+        if parent < 0:
+            pos, ori = off + frames[..., :3], local_q
+        else:
+            p_pos, p_ori = pos_list[parent], ori_list[parent]
+            pos = p_pos + quat.rotate_vec(p_ori, off)
+            ori = quat.multiply(p_ori, local_q)
+        pos_list.append(pos)
+        ori_list.append(ori)
+    return torch.stack(pos_list, dim=-2), torch.stack(ori_list, dim=-2)
+
+
+@functools.lru_cache(maxsize=None)
+def _chain_tables(skel: Skeleton):
+    """Per-node ancestor chains: (chain [n_nodes, depth] int32, ancestors
+    root first and -1-padded after the node itself, and the max depth)."""
+    chains = []
+    for i in range(skel.n_nodes):
+        chain, j = [], i
+        while j >= 0:
+            chain.append(j)
+            j = skel.parents[j]
+        chains.append(chain[::-1])
+    depth = max(len(c) for c in chains)
+    tbl = np.full((skel.n_nodes, depth), -1, np.int32)
+    for i, c in enumerate(chains):
+        tbl[i, : len(c)] = c
+    return tbl, depth
+
+
+def fk_node(skel: Skeleton, frames: torch.Tensor, node):
+    """Global transform of one node per batch element through its ancestor
+    chain.  frames [..., 3 + 4J] and node (int, [...]) broadcast jointly ->
+    (pos [..., 3], ori [..., 4]); agrees with fk_global to rounding."""
+    anim_idx = np.asarray(_fk_tables(skel), np.int64)
+    tbl, depth = _chain_tables(skel)
+    dev, dt = frames.device, frames.dtype
+    node = torch.as_tensor(node, dtype=torch.long, device=dev)
+    batch = torch.broadcast_shapes(frames.shape[:-1], node.shape)
+    frames = frames.expand(batch + frames.shape[-1:])
+    n_anim = skel.n_animated
+    quats = frames[..., 3:].reshape(batch + (n_anim, 4))
+    identity = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dt,
+                            device=dev).expand(batch + (1, 4))
+    quats_p = torch.cat([quats, identity], dim=-2)  # [..., n_anim+1, 4]
+    q_of_node = torch.as_tensor(np.where(anim_idx >= 0, anim_idx, n_anim),
+                                device=dev)
+    animated = torch.as_tensor(anim_idx >= 0, device=dev)
+    offsets = torch.as_tensor(skel.offsets, dtype=dt, device=dev)
+    rest = torch.as_tensor(_rest_table(skel), dtype=dt, device=dev)
+    chain = torch.as_tensor(tbl, dtype=torch.long, device=dev)[
+        node.expand(batch)]  # [..., depth]
+    pos, ori = fk_root(skel, frames)  # chain[..., 0] is the root
+    for d in range(1, depth):
+        nd = chain[..., d]
+        valid = (nd >= 0)[..., None]
+        nd = torch.clamp(nd, min=0)
+        gi = q_of_node[nd][..., None, None].expand(batch + (1, 4))
+        lq = torch.where(animated[nd][..., None],
+                         torch.gather(quats_p, -2, gi)[..., 0, :], rest[nd])
+        pos = torch.where(valid, pos + quat.rotate_vec(ori, offsets[nd]), pos)
+        ori = torch.where(valid, quat.multiply(ori, lq), ori)
+    return pos, ori
 
 
 def fk_root(skel: Skeleton, frames: torch.Tensor):

@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels.
 
-The sources in ../csrc/*.cu have a plain C interface.  At first use they are
-compiled with nvcc for sm_90a into one shared library under
-<repo>/build/kernels/<source hash>/ and loaded with ctypes; a later process
+The sources in ../csrc/*.cu have a plain C interface.  At first use each is
+compiled by its own nvcc process for sm_90a, all started together, and the
+objects are linked into one shared library under
+<repo>/build/kernels/<source hash>/, loaded with ctypes; a later process
 finds the library by the same hash and skips the build.  Nothing here runs at
 import time."""
 
@@ -19,7 +20,7 @@ import threading
 _CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib = None
@@ -46,12 +47,28 @@ def _nvcc() -> str:
 
 
 def _declare(lib):
-    vp, i = ctypes.c_void_p, ctypes.c_int
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.mg_score_loco.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, vp]
-    lib.mg_score_loco.restype = i
+    lib.mg_score_loco_ee.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i,
+                                     vp]
     lib.mg_chol_solve.argtypes = [vp, vp, vp, i, i, vp]
-    lib.mg_chol_solve.restype = i
+    lib.mg_lm_delta.argtypes = [vp, vp, vp, vp, vp, i, i, i, f, vp]
+    for fn in (lib.mg_score_loco, lib.mg_score_loco_ee, lib.mg_chol_solve,
+               lib.mg_lm_delta):
+        fn.restype = i
     return lib
+
+
+def _run_all(cmds):
+    """Run the commands concurrently; raise with the first failure's
+    output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [(proc.communicate()[0], proc.returncode) for proc in procs]
+    for cmd, (out, rc) in zip(cmds, outs):
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
 
 
 def load_library():
@@ -64,18 +81,18 @@ def load_library():
         so = out_dir / "libmg_kernels.so"
         if not so.exists():
             out_dir.mkdir(parents=True, exist_ok=True)
-            # build into a temporary name, then rename: a concurrent or cut
-            # build never leaves a half-written library under the final name
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-            os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   *[str(p) for p in _sources()]]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{proc.stderr}{proc.stdout}")
-            os.replace(tmp, so)
+            # build in a private directory, then rename the library: a
+            # concurrent or cut build never leaves a half-written library
+            # under the final name
+            with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+                nvcc = _nvcc()
+                objs = [os.path.join(tmp, src.stem + ".o")
+                        for src in _sources()]
+                _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+                          for src, obj in zip(_sources(), objs)])
+                lib = os.path.join(tmp, "libmg_kernels.so")
+                _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+                os.replace(lib, so)
         _lib = _declare(ctypes.CDLL(str(so)))
         return _lib
 

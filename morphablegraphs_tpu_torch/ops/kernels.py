@@ -1,19 +1,25 @@
-"""The walk's two hand-written CUDA kernels, each beside its plain PyTorch
-twin (port of the main-path kernels of morphablegraphs_tpu.ops.pallas_kernels).
+"""The walk's hand-written CUDA kernels, each beside its plain PyTorch twin
+(port of the runtime kernels of morphablegraphs_tpu.ops.pallas_kernels).
 
 * B1 `score_locomotion_candidates` (csrc/score_loco.cu): locomotion-family
   error of every candidate latent of every character.
+* B3 `score_locomotion_candidates(..., chain=...)` (the same source's
+  end-effector variant): B1 plus one position-only end-effector keyframe,
+  with the ancestor-chain FK run per candidate.
 * B2 `chol_solve` (csrc/chol_solve.cu): the crowd's batched SPD solve.
+* B4 `lm_delta` (csrc/lm_delta.cu): the whole LM step block (JtJ, Jtr,
+  Marquardt damping, Cholesky, trust clip) in one kernel.
 
 A wrapper given CPU tensors runs the twin; given CUDA tensors it launches
-the kernel (or raises).  Each wrapper counts its kernel launches in its
-`launches` attribute, a plain int.
+the kernel (or raises).  Each wrapper adds one to its kernel's entry of
+`launch_counts()` where it launches it, and nowhere else.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from . import bspline, cuda_build
@@ -21,9 +27,14 @@ from . import bspline, cuda_build
 N_EVAL = 19  # goal kf + dir + 16 traj samples + frame 0 (alignment)
 CH = 8  # root channels per eval frame, padded (x y z qw qx qy qz _)
 N_BLK = 128  # candidate tile of the selection kernel
-CFG_W = 48  # per-character scalar row
+CFG_W = 48  # per-character scalar row (slots 31..38: the ee block)
 TRAJ_SAMPLES = 16
+DAMP_FLOOR_REL = 1e-2  # LM damping floor, relative to max(diag JtJ)
 _PI = math.pi
+
+_LAUNCHES = {"score_locomotion_candidates": 0,
+             "score_locomotion_candidates_ee": 0,
+             "chol_solve": 0, "lm_delta": 0}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -34,27 +45,86 @@ def _round_up(x: int, m: int) -> int:
 # Selection operator and packed inputs of B1
 # ---------------------------------------------------------------------------
 
+def pack_ee_chain(skeleton, joint: str):
+    """Static ancestor-chain tables of the end-effector kernel B3: (chain_idx
+    [L] int32, the animated-joint index of each chain node root first, -1
+    for a fixed joint, and chain_const [L, 8] float32 rows
+    [off_x off_y off_z rest_w rest_x rest_y rest_z is_animated]).  Numpy,
+    host side; equal to the JAX package's tables for the same skeleton."""
+    from ..models import skeleton as sk_mod
+    chain, j = [], skeleton.index_of(joint)
+    while j >= 0:
+        chain.append(j)
+        j = skeleton.parents[j]
+    chain = chain[::-1]
+    anim_idx = sk_mod._fk_tables(skeleton)
+    rest = sk_mod._rest_table(skeleton)
+    idx = np.asarray([anim_idx[c] for c in chain], np.int32)
+    const = np.zeros((len(chain), 8), np.float32)
+    for d, c in enumerate(chain):
+        const[d, 0:3] = skeleton.offsets[c]
+        const[d, 3:7] = rest[c]
+        const[d, 7] = 1.0 if anim_idx[c] >= 0 else 0.0
+    return idx, const
+
+
+def ee_rows(depth: int) -> int:
+    """Operator rows of the end-effector block of a depth-L chain."""
+    return _round_up(3 + 4 * depth, 8)
+
+
 def selection_operator(eigen_s: torch.Tensor, mean_s: torch.Tensor,
                        knots_s: torch.Tensor, n_basis_max: int, n_dim: int,
                        goal_frame: torch.Tensor, dir_frame: torch.Tensor,
-                       n_canonical: torch.Tensor) -> torch.Tensor:
+                       n_canonical: torch.Tensor, ee_frame=None,
+                       ee_chain_idx=None) -> torch.Tensor:
     """Fold the B-spline basis into the root rows of each character's fPCA
     operator.  eigen_s [C, nb*n_dim, K], mean_s [C, nb*n_dim], knots_s
     [C, n_knots], frames [C] -> M' [C, N_EVAL*CH, K+1] with the mean in the
-    last column; eval frame order [goal kf | dir | traj 0..15 | frame 0]."""
+    last column; eval frame order [goal kf | dir | traj 0..15 | frame 0].
+
+    With ee_frame [C] and ee_chain_idx (from `pack_ee_chain`) an
+    end-effector block of `ee_rows(L)` rows follows: the raw root
+    translation and each chain joint's local quaternion channels at
+    ee_frame, zero rows for fixed joints (the kernel substitutes their rest
+    rotations)."""
     c, _, k = eigen_s.shape
-    eigen = eigen_s.reshape(c, n_basis_max, n_dim, k)[:, :, :7, :]
-    mean = mean_s.reshape(c, n_basis_max, n_dim)[:, :, :7]
+    eigen_full = eigen_s.reshape(c, n_basis_max, n_dim, k)
+    mean_full = mean_s.reshape(c, n_basis_max, n_dim)
     lin = torch.linspace(0.0, 1.0, TRAJ_SAMPLES, device=eigen_s.device)
     t_lin = lin * torch.clamp(n_canonical - 1.0, min=1.0)[:, None]
-    t_eval = torch.cat([goal_frame[:, None], dir_frame[:, None], t_lin,
-                        torch.zeros_like(goal_frame)[:, None]], dim=1)
-    b = bspline.basis_matrix(knots_s, t_eval)  # [C, N_EVAL, nb]
-    m = torch.einsum("cfb,cbhk->cfhk", b, eigen)  # [C, F, 7, K]
-    mu = torch.einsum("cfb,cbh->cfh", b, mean)  # [C, F, 7]
-    m = torch.cat([m, mu[..., None]], dim=-1)
+    parts = [goal_frame[:, None], dir_frame[:, None], t_lin,
+             torch.zeros_like(goal_frame)[:, None]]
+    if ee_chain_idx is not None:
+        parts.append(torch.as_tensor(ee_frame, dtype=torch.float32,
+                                     device=eigen_s.device).expand(c)[:, None])
+    b = bspline.basis_matrix(knots_s, torch.cat(parts, dim=1))
+    m = torch.einsum("cfb,cbhk->cfhk", b[:, :N_EVAL], eigen_full[:, :, :7])
+    mu = torch.einsum("cfb,cbh->cfh", b[:, :N_EVAL], mean_full[:, :, :7])
+    m = torch.cat([m, mu[..., None]], dim=-1)  # [C, F, 7, K+1]
     m = torch.nn.functional.pad(m, (0, 0, 0, CH - 7))
-    return m.reshape(c, N_EVAL * CH, k + 1)
+    mop = m.reshape(c, N_EVAL * CH, k + 1)
+    if ee_chain_idx is None:
+        return mop
+    depth = len(ee_chain_idx)
+    ch_idx, ch_mask = [0, 1, 2], [1.0, 1.0, 1.0]
+    for a in np.asarray(ee_chain_idx):
+        if a >= 0:
+            ch_idx += [3 + 4 * int(a) + i for i in range(4)]
+            ch_mask += [1.0] * 4
+        else:  # fixed joint: zero rows
+            ch_idx += [0, 0, 0, 0]
+            ch_mask += [0.0] * 4
+    mask = torch.as_tensor(ch_mask, dtype=eigen_s.dtype,
+                           device=eigen_s.device)
+    b_ee = b[:, N_EVAL]  # [C, nb]
+    m_ee = torch.einsum("cb,cbhk->chk", b_ee,
+                        eigen_full[:, :, ch_idx] * mask[:, None])
+    mu_ee = torch.einsum("cb,cbh->ch", b_ee, mean_full[:, :, ch_idx] * mask)
+    rows = torch.cat([m_ee, mu_ee[..., None]], dim=-1)  # [C, 3+4L, K+1]
+    rows = torch.nn.functional.pad(
+        rows, (0, 0, 0, ee_rows(depth) - rows.shape[1]))
+    return torch.cat([mop, rows], dim=1)
 
 
 def pack_path_table(sp, root_offset: torch.Tensor) -> torch.Tensor:
@@ -76,11 +146,15 @@ def pack_path_table(sp, root_offset: torch.Tensor) -> torch.Tensor:
 def pack_selection_cfg(sp, a_prev, prev_pos, start_theta, start_delta,
                        has_prev, goal_pos, dir_target, min_arc, kf_weight,
                        dir_weight, traj_active, traj_weight, range_lo,
-                       range_hi, root_offset) -> torch.Tensor:
-    """Per-character scalars [C, CFG_W] in the TPU kernel's layout (slots
-    31..38, the end-effector block, stay zero).  Every argument is [C] or
-    [C, n] (or a Python float broadcast over the crowd); goal_pos and the
-    end-snap point are shifted by -root_offset."""
+                       range_hi, root_offset, kf_active=1.0, dir_active=1.0,
+                       ee_active=0.0, ee_weight=1.0, ee_target=None,
+                       ee_mask=None) -> torch.Tensor:
+    """Per-character scalars [C, CFG_W] in the TPU kernel's layout.  Every
+    argument is [C] or [C, n] (or a Python float broadcast over the crowd);
+    goal_pos, the end-snap point and the end-effector target are shifted by
+    -root_offset.  ee_* fill slots 31..38, read by kernel B3 only: the
+    end-effector keyframe's activity, weight, world target [C, 3] and
+    component mask [C, 3]."""
     c = sp.table_arc.shape[0]
     dev = sp.table_arc.device
 
@@ -92,14 +166,19 @@ def pack_selection_cfg(sp, a_prev, prev_pos, start_theta, start_delta,
     mask = sp.dim_mask()
     end_pt = (sp.table_points[:, -1] - root_offset) * mask
     goal = goal_pos - root_offset
+    zero3 = torch.zeros((c, 3), device=dev)
+    ee_t = (zero3 if ee_target is None else ee_target) - root_offset
+    ee_m = zero3 if ee_mask is None else ee_mask
     vals = [torch.cos(a_prev), prev_pos[:, 0], prev_pos[:, 1],
             prev_pos[:, 2], torch.cos(start_theta), start_delta[:, 0],
             start_delta[:, 1], start_delta[:, 2], has_prev, goal[:, 0],
-            goal[:, 1], goal[:, 2], 1.0, kf_weight, 1.0, dir_weight,
-            traj_active, traj_weight, min_arc, a_dir, range_lo, range_hi,
-            mask[:, 0], mask[:, 1], mask[:, 2], end_pt[:, 0], end_pt[:, 1],
-            end_pt[:, 2], sp.table_arc[:, -1], torch.sin(a_prev),
-            torch.sin(start_theta)]
+            goal[:, 1], goal[:, 2], kf_active, kf_weight, dir_active,
+            dir_weight, traj_active, traj_weight, min_arc, a_dir, range_lo,
+            range_hi, mask[:, 0], mask[:, 1], mask[:, 2], end_pt[:, 0],
+            end_pt[:, 1], end_pt[:, 2], sp.table_arc[:, -1],
+            torch.sin(a_prev), torch.sin(start_theta), ee_active,
+            ee_weight, ee_t[:, 0], ee_t[:, 1], ee_t[:, 2], ee_m[:, 0],
+            ee_m[:, 1], ee_m[:, 2]]
     cfg = torch.stack([col(v) for v in vals], dim=1)
     return torch.nn.functional.pad(cfg, (0, CFG_W - cfg.shape[1]))
 
@@ -128,9 +207,10 @@ def _atan2(y, x):
 
 
 def _loco_score_body(frames: torch.Tensor, table: torch.Tensor,
-                     cfg: torch.Tensor) -> torch.Tensor:
-    """The TPU kernel body on evaluated rows frames [C, N_EVAL*CH, N]
-    -> errors [C, N]."""
+                     cfg: torch.Tensor):
+    """The TPU kernel body on evaluated rows frames [C, N_EVAL*CH(+ee), N]
+    -> (errors [C, N], and the per-candidate aligning transform ct, st, dx,
+    dy, dz [C, N] the end-effector block reuses)."""
     n = frames.shape[-1]
 
     def p(i):
@@ -196,19 +276,72 @@ def _loco_score_body(frames: torch.Tensor, table: torch.Tensor,
         in_range = ((arc_sel >= p(20)) & (arc_sel <= p(21))).to(d.dtype)
         traj_sum = traj_sum + d * in_range
         min_arc = arc_sel
-    return (p(12) * p(13) * kf_err + p(14) * p(15) * dir_err
-            + p(16) * p(17) * traj_sum / 16.0)
+    err = (p(12) * p(13) * kf_err + p(14) * p(15) * dir_err
+           + p(16) * p(17) * traj_sum / 16.0)
+    return err, ct, st, dx, dy, dz
+
+
+def _ee_score(frames, cfg, chain, ct, st, dx, dy, dz):
+    """B3's end-effector term: ancestor-chain FK of the ee block's rows per
+    candidate, in fk_global's composition order with unnormalized
+    quaternions; the aligning rotation enters as its half-angle quaternion
+    from (ct, st).  chain [L, 8] from `pack_ee_chain` -> [C, N]."""
+    def p(i):
+        return cfg[:, i: i + 1]
+
+    def row(i):
+        return frames[:, i, :]
+
+    eb = N_EVAL * CH
+    px = ct * row(eb) + st * row(eb + 2) + dx
+    pz = -st * row(eb) + ct * row(eb + 2) + dz
+    py = row(eb + 1) + dy
+
+    def local_q(d):
+        return [torch.where(chain[d, 7] > 0, row(eb + 3 + 4 * d + i),
+                            chain[d, 3 + i]) for i in range(4)]
+
+    c2 = torch.sqrt(torch.clamp((1.0 + ct) * 0.5, min=0.0))
+    s2m = torch.sqrt(torch.clamp((1.0 - ct) * 0.5, min=0.0))
+    s2 = torch.where(st >= 0, s2m, -s2m)
+    qw, qx, qy, qz = local_q(0)
+    aw, ax = c2 * qw - s2 * qy, c2 * qx + s2 * qz
+    ay, az = c2 * qy + s2 * qw, c2 * qz - s2 * qx
+    for d in range(1, chain.shape[0]):
+        ox, oy, oz = chain[d, 0], chain[d, 1], chain[d, 2]
+        uvx, uvy, uvz = ay * oz - az * oy, az * ox - ax * oz, ax * oy - ay * ox
+        uuvx = ay * uvz - az * uvy
+        uuvy = az * uvx - ax * uvz
+        uuvz = ax * uvy - ay * uvx
+        px = px + ox + 2.0 * (aw * uvx + uuvx)
+        py = py + oy + 2.0 * (aw * uvy + uuvy)
+        pz = pz + oz + 2.0 * (aw * uvz + uuvz)
+        lw, lx, ly, lz = local_q(d)
+        aw, ax, ay, az = (aw * lw - ax * lx - ay * ly - az * lz,
+                          aw * lx + ax * lw + ay * lz - az * ly,
+                          aw * ly - ax * lz + ay * lw + az * lx,
+                          aw * lz + ax * ly - ay * lx + az * lw)
+    ddx, ddy, ddz = (px - p(33)) * p(36), (py - p(34)) * p(37), \
+        (pz - p(35)) * p(38)
+    ee_err = torch.sqrt(torch.clamp(ddx * ddx + ddy * ddy + ddz * ddz,
+                                    min=1e-12))
+    return p(31) * p(32) * ee_err
 
 
 def score_locomotion_candidates_ref(mop: torch.Tensor, alphas: torch.Tensor,
-                                    table: torch.Tensor,
-                                    cfg: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch twin of kernel B1 (same arguments and result)."""
+                                    table: torch.Tensor, cfg: torch.Tensor,
+                                    chain=None) -> torch.Tensor:
+    """Plain PyTorch twin of kernels B1 and, with chain, B3 (same arguments
+    and result)."""
     c, n, _ = alphas.shape
     a1 = torch.cat([alphas, torch.ones((c, n, 1), dtype=alphas.dtype,
                                        device=alphas.device)], dim=2)
-    frames = torch.bmm(mop, a1.transpose(1, 2))  # [C, N_EVAL*CH, N]
-    return _loco_score_body(frames, table, cfg)
+    frames = torch.bmm(mop, a1.transpose(1, 2))  # [C, rows, N]
+    err, *xform = _loco_score_body(frames, table, cfg)
+    if chain is None:
+        return err
+    return err + _ee_score(frames, cfg, torch.as_tensor(
+        chain, dtype=frames.dtype, device=frames.device), *xform)
 
 
 def _check_cuda(name, *tensors):
@@ -221,21 +354,31 @@ def _check_cuda(name, *tensors):
 
 
 def score_locomotion_candidates(mop: torch.Tensor, alphas: torch.Tensor,
-                                table: torch.Tensor,
-                                cfg: torch.Tensor) -> torch.Tensor:
-    """Locomotion-family error of every candidate.
+                                table: torch.Tensor, cfg: torch.Tensor,
+                                chain=None) -> torch.Tensor:
+    """Locomotion-family error of every candidate (kernel B1), plus with
+    chain the end-effector keyframe of cfg slots 31..38 (kernel B3).
 
-    mop [C, N_EVAL*CH, K+1] from `selection_operator`; alphas [C, N, K]
-    with N a multiple of 128; table [C, G8, 5] from `pack_path_table`;
-    cfg [C, CFG_W] from `pack_selection_cfg` -> errors [C, N]."""
+    mop [C, N_EVAL*CH (+ ee_rows(L)), K+1] from `selection_operator`;
+    alphas [C, N, K] with N a multiple of 128; table [C, G8, 5] from
+    `pack_path_table`; cfg [C, CFG_W] from `pack_selection_cfg`; chain
+    [L, 8] from `pack_ee_chain` -> errors [C, N]."""
     c, n, k = alphas.shape
     if n % N_BLK != 0:
         raise ValueError(f"pad candidates to a multiple of {N_BLK}")
-    if mop.shape != (c, N_EVAL * CH, k + 1) or table.shape[0] != c \
+    rows = N_EVAL * CH
+    if chain is not None:
+        chain = torch.as_tensor(chain, dtype=torch.float32,
+                                device=mop.device).contiguous()
+        if chain.dim() != 2 or chain.shape[1] != 8 or chain.shape[0] < 1:
+            raise ValueError("chain must be [L, 8] from pack_ee_chain")
+        rows += ee_rows(chain.shape[0])
+    if mop.shape != (c, rows, k + 1) or table.shape[0] != c \
             or table.shape[2] != 5 or cfg.shape != (c, CFG_W):
         raise ValueError("score_locomotion_candidates: shape mismatch")
     if mop.device.type == "cpu":
-        return score_locomotion_candidates_ref(mop, alphas, table, cfg)
+        return score_locomotion_candidates_ref(mop, alphas, table, cfg,
+                                               chain)
     if mop.device.type != "cuda":
         raise ValueError(f"no kernel for device {mop.device}")
     _check_cuda("score_locomotion_candidates", mop, alphas, table, cfg)
@@ -245,15 +388,20 @@ def score_locomotion_candidates(mop: torch.Tensor, alphas: torch.Tensor,
     lib = cuda_build.load_library()
     with torch.cuda.device(mop.device):
         stream = torch.cuda.current_stream().cuda_stream
-        cuda_build.check(lib.mg_score_loco(
-            mop.data_ptr(), alphas.data_ptr(), table.data_ptr(),
-            cfg.data_ptr(), out.data_ptr(), c, n, k, table.shape[1], stream),
-            "score_locomotion_candidates launch")
-    score_locomotion_candidates.launches += 1
+        if chain is None:
+            cuda_build.check(lib.mg_score_loco(
+                mop.data_ptr(), alphas.data_ptr(), table.data_ptr(),
+                cfg.data_ptr(), out.data_ptr(), c, n, k, table.shape[1],
+                stream), "score_locomotion_candidates launch")
+            _LAUNCHES["score_locomotion_candidates"] += 1
+        else:
+            cuda_build.check(lib.mg_score_loco_ee(
+                mop.data_ptr(), alphas.data_ptr(), table.data_ptr(),
+                cfg.data_ptr(), chain.data_ptr(), out.data_ptr(), c, n, k,
+                table.shape[1], chain.shape[0], stream),
+                "score_locomotion_candidates (ee) launch")
+            _LAUNCHES["score_locomotion_candidates_ee"] += 1
     return out
-
-
-score_locomotion_candidates.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -308,18 +456,73 @@ def chol_solve(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         cuda_build.check(lib.mg_chol_solve(a.data_ptr(), g.data_ptr(),
                                            x.data_ptr(), c, k, stream),
                          "chol_solve launch")
-    chol_solve.launches += 1
+    _LAUNCHES["chol_solve"] += 1
     return x
 
 
-chol_solve.launches = 0
+# ---------------------------------------------------------------------------
+# B4: the fused LM step block
+# ---------------------------------------------------------------------------
+
+def lm_delta_block(j: torch.Tensor, r: torch.Tensor, lam: torch.Tensor,
+                   radius: torch.Tensor, solve) -> torch.Tensor:
+    """The LM step block with `solve` for the damped normal equations:
+    solve (JtJ + lam diag(max(dg, max(1e-2 max dg, 1e-6)))) delta = Jt r,
+    then scale delta so that ||delta|| <= radius.  j [C, R, k], r [C, R],
+    lam/radius [C] -> delta [C, k]."""
+    jt = j.transpose(1, 2)
+    jtj = torch.bmm(jt, j)
+    dg = torch.diagonal(jtj, dim1=-2, dim2=-1)
+    floor = torch.clamp(DAMP_FLOOR_REL * dg.amax(-1), min=1e-6)
+    damp = torch.diag_embed(torch.maximum(dg, floor[:, None]))
+    g = torch.bmm(jt, r[..., None])[..., 0]
+    delta = solve(jtj + lam[:, None, None] * damp, g)
+    nrm = torch.linalg.vector_norm(delta, dim=-1)
+    scale = torch.clamp(radius / torch.clamp(nrm, min=1e-10), max=1.0)
+    return delta * scale[:, None]
+
+
+def lm_delta_ref(j: torch.Tensor, r: torch.Tensor, lam: torch.Tensor,
+                 radius: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch twin of kernel B4: the step block solved by
+    `chol_solve_unrolled` on any device."""
+    return lm_delta_block(j, r, lam, radius, chol_solve_unrolled)
+
+
+def lm_delta(j: torch.Tensor, r: torch.Tensor, lam: torch.Tensor,
+             radius: torch.Tensor) -> torch.Tensor:
+    """Clipped LM step of the whole crowd in one kernel (B4): j [C, R, k],
+    r [C, R], lam/radius [C] -> delta [C, k].  Zero characters give 0."""
+    if j.dim() != 3 or r.shape != j.shape[:2] \
+            or lam.shape != j.shape[:1] or radius.shape != j.shape[:1]:
+        raise ValueError("lm_delta expects j [C, R, k], r [C, R], "
+                         "lam [C] and radius [C]")
+    if j.device.type == "cpu":
+        return lm_delta_ref(j, r, lam, radius)
+    if j.device.type != "cuda":
+        raise ValueError(f"no kernel for device {j.device}")
+    j, r, lam, radius = (t.contiguous() for t in (j, r, lam, radius))
+    _check_cuda("lm_delta", j, r, lam, radius)
+    c, n_res, k = j.shape
+    out = torch.empty((c, k), dtype=torch.float32, device=j.device)
+    if c == 0:
+        return out
+    lib = cuda_build.load_library()
+    with torch.cuda.device(j.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        cuda_build.check(lib.mg_lm_delta(
+            j.data_ptr(), r.data_ptr(), lam.data_ptr(), radius.data_ptr(),
+            out.data_ptr(), c, n_res, k, DAMP_FLOOR_REL, stream),
+            "lm_delta launch")
+    _LAUNCHES["lm_delta"] += 1
+    return out
 
 
 def reset_launch_counts():
-    score_locomotion_candidates.launches = 0
-    chol_solve.launches = 0
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
 
 
 def launch_counts() -> dict:
-    return {"score_locomotion_candidates": score_locomotion_candidates.launches,
-            "chol_solve": chol_solve.launches}
+    """Kernel launches since the last reset, by kernel."""
+    return dict(_LAUNCHES)

@@ -3,9 +3,11 @@
 
 Each batchable request (one locomotion action following a root trajectory,
 no keyframe constraints) becomes one character of
-`constrained_walk_full_crowd`.  The walk always runs the port's headline
-path: the selection kernel B1 (on CUDA; its plain twin on CPU), root-only
-residuals, and the closed-form frozen LM whose solves go through kernel B2.
+`constrained_walk_full_crowd`, with the JAX package's single-device serving
+flags: the selection kernel B1 (on CUDA; its plain twin on CPU) with
+n_samples rounded up to its tile of 128, root_only derived from the
+constraint sets, and the exact LM (lm_frozen=False), whose solves go
+through kernel B2.
 """
 
 from __future__ import annotations
@@ -63,6 +65,13 @@ class BatchedGenerator:
         self.n_samples = -(-n_samples // kernels.N_BLK) * kernels.N_BLK
         self.max_step_frames = max_step_frames
         self.lm_iters = lm_iters
+
+    def walk_config(self) -> cw.WalkConfig:
+        """The walk settings of every batch: constrained_walk_full's
+        defaults (the exact LM) with this generator's sizes."""
+        return cw.WalkConfig(max_step_frames=self.max_step_frames,
+                             n_samples=self.n_samples,
+                             lm_iters=self.lm_iters)
 
     def _start_id(self, action: str) -> int:
         group = self.graph.node_groups[action]
@@ -130,10 +139,7 @@ class BatchedGenerator:
             torch.tensor(start_ids, device=self.device), self.n_steps,
             draws=cw.torch_sampler(gen, self.stacked, len(mg_inputs),
                                    self.n_samples),
-            step_scs=step_scs,
-            cfg=cw.WalkConfig(max_step_frames=self.max_step_frames,
-                              n_samples=self.n_samples,
-                              lm_iters=self.lm_iters))
+            step_scs=step_scs, cfg=self.walk_config())
         segs = segs.cpu().numpy()
         n_frames = n_frames.cpu().numpy()
         return [walk_mod.flatten_segments(segs[c], n_frames[c])

@@ -1,18 +1,21 @@
-"""Constrained crowd walk with full locomotion constraint semantics (port of
-morphablegraphs_tpu.synthesis.constrained_walk.constrained_walk_full with its
-headline flags: fused selection kernel, root-only residuals, and the
-closed-form frozen LM).
+"""Constrained crowd walk with full constraint semantics (port of
+morphablegraphs_tpu.synthesis.constrained_walk.constrained_walk_full with the
+fused selection kernels: pallas_selection=True, and pallas_ee for one
+end-effector keyframe).
 
 The crowd is an explicit leading [C] axis and the JAX scan a Python loop
 over `full_walk_step`.  Per step and character:
   1. the locomotion goal (goal keyframe + 2D direction) and the trajectory
      constraint from the travelled arc are filled from path queries;
-  2. n_samples GMM candidates are ranked by kernel B1, and the winner is
-     re-scored by the exact evaluator;
-  3. where that error is >= lm_threshold, lm_iters frozen-correspondence LM
-     iterations refine it (kernel B2 solves the normal equations of the
-     whole crowd), kept only if the exact error improves.  The JAX
-     lax.cond gate is a masked select per character, as under vmap;
+  2. n_samples GMM candidates are ranked by kernel B1 (with an end-effector
+     keyframe, B3), and the winner is re-scored by the exact evaluator
+     (root-only, or the dense FK pass when a slot is on another joint);
+  3. where that error is >= lm_threshold, lm_iters LM iterations refine it,
+     kept only if the exact error improves: the exact LM by default, or the
+     frozen-correspondence LM (closed form or linearize form).  The normal
+     equations of the whole crowd go through kernel B2, or the whole step
+     block through kernel B4.  The JAX lax.cond gate is a masked select
+     per character, as under vmap;
   4. the winner is back-projected with time warping, aligned and
      seam-smoothed, the travelled arc advances, and the next node is
      drawn.
@@ -68,12 +71,25 @@ class StepOutput:
 
 @dataclasses.dataclass
 class WalkConfig:
-    """The settings callers choose; defaults are constrained_walk_full's."""
+    """The settings callers choose; defaults are constrained_walk_full's.
+
+    pallas_ee: joint name of the one end-effector keyframe (user slot 2)
+    that selection scores with kernel B3; lm_frozen: the frozen-
+    correspondence LM instead of the exact one, in its closed form when
+    lm_frozen_closed (else the linearize form); frozen_ee: the end-effector
+    joint the frozen LM models beside the root; lm_fused_step: the LM step
+    block as kernel B4 (the JAX package's MG_LM_PALLAS_DELTA=1), else its
+    solve through kernel B2."""
 
     max_step_frames: int = 128
     n_samples: int = 128
     lm_iters: int = 5
     lm_threshold: float = 0.0
+    pallas_ee: Optional[str] = None
+    lm_frozen: bool = False
+    lm_frozen_closed: bool = True
+    frozen_ee: Optional[str] = None
+    lm_fused_step: bool = False
 
 
 # constrained_walk_full's defaults for the settings no caller of the port
@@ -111,28 +127,60 @@ def torch_sampler(generator: torch.Generator, g: StackedGraph, n_chars: int,
     return draw
 
 
-def default_step_scs(skeleton: Skeleton, n_steps: int):
-    """n_steps copies of the empty constraint set (numpy leaves)."""
-    base = compiled.empty_step_constraints(skeleton, 0)
+def stack_steps(base: compiled.StepConstraints, n_steps: int):
+    """n_steps copies of a host-side constraint set (numpy leaves)."""
     return dataclasses.replace(base, **{
         f.name: np.broadcast_to(np.asarray(getattr(base, f.name)),
                                 (n_steps,) + np.shape(getattr(base, f.name)))
         for f in dataclasses.fields(base) if f.name != "traj"})
 
 
-def check_pallas_selection_contract(skeleton: Skeleton, step_scs):
-    """The selection kernel ranks candidates on the locomotion family only:
-    refuse user constraint slots it would silently ignore."""
-    if not compiled.step_scs_locomotion_only(step_scs):
+def default_step_scs(skeleton: Skeleton, n_steps: int):
+    """n_steps copies of the empty constraint set (numpy leaves)."""
+    return stack_steps(compiled.empty_step_constraints(skeleton, 0), n_steps)
+
+
+def check_pallas_selection_contract(skeleton: Skeleton, step_scs,
+                                    pallas_ee: Optional[str] = None):
+    """The selection kernels rank candidates on the locomotion family (plus,
+    with pallas_ee, one position-only keyframe on that joint in slot 2):
+    refuse user constraint slots they would silently ignore."""
+    if pallas_ee is not None:
+        if not compiled.step_scs_pallas_ee_only(
+                step_scs, skeleton.index_of(pallas_ee)):
+            raise ValueError(
+                "the end-effector selection kernel ranks candidates on the "
+                "locomotion family plus ONE position-only keyframe on "
+                f"'{pallas_ee}' in slot 2; step_scs carries other user "
+                "slots that would be ignored")
+    elif not compiled.step_scs_locomotion_only(step_scs):
         raise ValueError(
             "the selection kernel ranks candidates on the locomotion family "
             "only; step_scs carries user constraint slots that would be "
             "ignored")
-    if not compiled.step_scs_root_only(step_scs):
-        raise ValueError("the ported walk evaluates root-only slots")
     if not compiled.frozen_closed_supported(skeleton):
-        raise ValueError("the ported walk needs the root as animated "
-                         "joint 0")
+        raise ValueError("the selection kernels read the root rotation from "
+                         "channels 3:7: the root must be animated joint 0")
+
+
+def check_walk_contract(skeleton: Skeleton, step_scs, cfg: WalkConfig,
+                        root_only: bool):
+    """The host-side guards of constrained_walk_full_crowd: the selection
+    contract, and the frozen LM's model (root-only slots, or root slots plus
+    one position-only keyframe on frozen_ee in slot 2; the closed form
+    would score a slot on any other joint against the root)."""
+    check_pallas_selection_contract(skeleton, step_scs, cfg.pallas_ee)
+    if cfg.lm_frozen and not root_only:
+        if cfg.frozen_ee is None:
+            raise ValueError("lm_frozen needs root-only slots or a single "
+                             "end-effector joint via frozen_ee; anything "
+                             "else needs the exact LM")
+        if not compiled.step_scs_pallas_ee_only(
+                step_scs, skeleton.index_of(cfg.frozen_ee)):
+            raise ValueError(
+                "lm_frozen+frozen_ee models root slots plus ONE "
+                f"position-only keyframe on '{cfg.frozen_ee}' in slot 2; "
+                "step_scs carries other user slots - use the exact LM")
 
 
 def step_constraints(step_scs, step_idx: int, n_chars: int,
@@ -155,12 +203,14 @@ def _node_gmm(g: StackedGraph, node_id: torch.Tensor) -> gmm_ops.GMM:
                        g.gmm_cov_chol[node_id], g.gmm_prec_chol[node_id])
 
 
-def _aligned_coeffs(g: StackedGraph, node_id, sc, s):
-    """Root channels of the aligned B-spline coefficients [C, n_basis, 7]
-    of latents s [C, L] (the residuals read no other channel)."""
+def _aligned_coeffs(g: StackedGraph, node_id, sc, s, root_only: bool = True):
+    """Aligned B-spline coefficients of latents s [C, L]: [C, n_basis, 7],
+    the root channels the root-only residuals read, or with
+    root_only=False every channel [C, n_basis, n_dim]."""
     c = s.shape[0]
-    e = g.eigen_s[node_id].reshape(c, g.n_basis_max, g.n_dim, -1)[:, :, :7]
-    mu = g.mean_s[node_id].reshape(c, g.n_basis_max, g.n_dim)[:, :, :7]
+    n_ch = 7 if root_only else g.n_dim
+    e = g.eigen_s[node_id].reshape(c, g.n_basis_max, g.n_dim, -1)[:, :, :n_ch]
+    mu = g.mean_s[node_id].reshape(c, g.n_basis_max, g.n_dim)[:, :, :n_ch]
     coeffs = torch.einsum("cbhk,ck->cbh", e, s[:, : g.k_s_max]) + mu
     q_prev, d_prev = align.node_aligning_2d_transform(sc.prev_last,
                                                       coeffs[:, 0])
@@ -170,23 +220,32 @@ def _aligned_coeffs(g: StackedGraph, node_id, sc, s):
     return align.transform_frames(coeffs, q_y, delta)
 
 
-def exact_error(skeleton: Skeleton, g: StackedGraph, node_id, sc, s):
-    """Exact constraint error [C] of latents s [C, L] (root-only locomotion
-    family, the advancing closest-point trajectory residuals)."""
+def exact_error(skeleton: Skeleton, g: StackedGraph, node_id, sc, s,
+                root_only: bool = True):
+    """Exact constraint error [C] of latents s [C, L] (the JAX package's
+    stacked_error with use_ca=False: root-only, or the dense FK pass)."""
     return compiled.error_from_residuals(compiled.residuals_from_coeffs(
-        skeleton, g.knots_s[node_id], sc, _aligned_coeffs(g, node_id, sc, s)))
+        skeleton, g.knots_s[node_id], sc,
+        _aligned_coeffs(g, node_id, sc, s, root_only), root_only))
 
 
 def _select(g, state, sc, samples, path, path_table, goal_arc,
-            n_can_f, root_off):
-    """Rank candidates with kernel B1 -> (winner latents [C, L])."""
+            n_can_f, root_off, ee=None):
+    """Rank candidates with kernel B1, or with ee = (chain_idx, chain [L, 8])
+    kernel B3 scoring the end-effector slot 2 too -> winner latents
+    [C, L]."""
     goal_pos, goal_dir = spline_path.point_and_dir_at_arc_length(path,
                                                                  goal_arc)
     node = state.node_id
     mop = kernels.selection_operator(
         g.eigen_s[node], g.mean_s[node], g.knots_s[node], g.n_basis_max,
         g.n_dim, goal_frame=n_can_f - 1.0, dir_frame=n_can_f - 1.0,
-        n_canonical=n_can_f)
+        n_canonical=n_can_f,
+        ee_frame=None if ee is None else sc.kf_frame[:, 2],
+        ee_chain_idx=None if ee is None else ee[0])
+    ee_kw = {} if ee is None else dict(
+        ee_active=sc.kf_active[:, 2], ee_weight=sc.kf_weight[:, 2],
+        ee_target=sc.kf_pos[:, 2], ee_mask=sc.kf_pos_mask[:, 2])
     cfg = kernels.pack_selection_cfg(
         path, align.heading_angle(state.prev_last[:, 3:7]),
         state.prev_last[:, :3], align.heading_angle(sc.start_q),
@@ -194,42 +253,97 @@ def _select(g, state, sc, samples, path, path_table, goal_arc,
         kf_weight=POS_WEIGHT, dir_weight=DIR_WEIGHT,
         traj_active=1.0, traj_weight=TRAJ_WEIGHT,
         range_lo=sc.traj_range_start, range_hi=sc.traj_range_end,
-        root_offset=root_off)
+        root_offset=root_off, **ee_kw)
     errors = kernels.score_locomotion_candidates(
-        mop, samples[:, :, : g.k_s_max].contiguous(), path_table, cfg)
+        mop.contiguous(), samples[:, :, : g.k_s_max].contiguous(),
+        path_table, cfg, chain=None if ee is None else ee[1])
     best = torch.argmin(errors, dim=1)
     return samples[torch.arange(samples.shape[0], device=samples.device),
                    best]
 
 
-def _refine(skeleton, g, node_id, sc, s0, e0, lm_iters: int):
-    """Frozen closed-form LM on every character; returns (s, err) where
-    the exact error improved, else (s0, e0)."""
-    gmm = _node_gmm(g, node_id)
-    act = compiled.active_mask(sc) * torch.as_tensor(
+def _lm_mask(sc) -> torch.Tensor:
+    """The LM's residual mask: active slots of the families the walk
+    evaluates (use_traj=True, use_ca=use_ts=False)."""
+    return compiled.active_mask(sc) * torch.as_tensor(
         compiled.static_family_gate(use_traj=True, use_ca=False,
-                                    use_ts=False), device=s0.device)
-    raw_make = compiled.make_frozen_root_residuals_closed(
-        skeleton, g.knots_s[node_id], sc, g.eigen_s[node_id],
-        g.mean_s[node_id], g.n_basis_max, g.n_dim, g.k_s_max)
+                                    use_ts=False), device=sc.kf_active.device)
+
+
+def lm_residual_fn(skeleton: Skeleton, g: StackedGraph, node_id, sc,
+                   root_only: bool):
+    """The exact LM's residual function s [C, L] -> [C, R]: the masked
+    constraint residuals plus the GMM naturalness term -log p(s), as JAX
+    constrained_walk_full's `residuals`."""
+    gmm = _node_gmm(g, node_id)
+    act = _lm_mask(sc)
+
+    def residuals(sv):
+        r = compiled.residuals_from_coeffs(
+            skeleton, g.knots_s[node_id], sc,
+            _aligned_coeffs(g, node_id, sc, sv, root_only), root_only)
+        return act * (ERROR_SCALE * r
+                      - QUALITY_SCALE * gmm_ops.log_prob(gmm, sv)[:, None])
+
+    return residuals
+
+
+def _refine(skeleton, g, node_id, sc, s0, e0, cfg: WalkConfig,
+            root_only: bool):
+    """LM refinement of every character (JAX constrained_walk_full's
+    `refine`): the exact LM, or with cfg.lm_frozen the frozen model in its
+    closed or linearize form.  Returns (s, err) where the exact error
+    improved, else (s0, e0)."""
+    gmm = _node_gmm(g, node_id)
+    act = _lm_mask(sc)
     es, qs = ERROR_SCALE, QUALITY_SCALE
-    n_lat = s0.shape[1]
+    lm_kw = dict(fused_step=cfg.lm_fused_step)
 
-    def make_vj(sv):
-        r_raw, j_raw, vfn = raw_make(sv)
-        nll, g_nll = gmm_ops.neg_log_prob_and_grad(gmm, sv)
-        j_pad = torch.nn.functional.pad(j_raw, (0, n_lat - j_raw.shape[2]))
-        r = act * (es * r_raw + qs * nll[:, None])
-        j = act[:, :, None] * (es * j_pad + qs * g_nll[:, None, :])
+    def nll(x):
+        return -gmm_ops.log_prob(gmm, x)
 
-        def value(x):
-            nll_x, _ = gmm_ops.neg_log_prob_and_grad(gmm, x)
-            return act * (es * vfn(x) + qs * nll_x[:, None])
+    if not cfg.lm_frozen:
+        s_opt, _ = lm.lm_minimize(
+            lm_residual_fn(skeleton, g, node_id, sc, root_only), s0,
+            cfg.lm_iters, **lm_kw)
+    else:
+        ee_idx = (skeleton.index_of(cfg.frozen_ee)
+                  if cfg.frozen_ee is not None and not root_only else None)
+        args = (skeleton, g.knots_s[node_id], sc, g.eigen_s[node_id],
+                g.mean_s[node_id], g.n_basis_max, g.n_dim, g.k_s_max)
+        if cfg.lm_frozen_closed and compiled.frozen_closed_supported(
+                skeleton):
+            raw_make = compiled.make_frozen_root_residuals_closed(
+                *args, ee_node=ee_idx)
+            n_lat = s0.shape[1]
 
-        return r, j, value
+            def make_vj(sv):
+                r_raw, j_raw, vfn = raw_make(sv)
+                nll_s, g_nll = gmm_ops.neg_log_prob_and_grad(gmm, sv)
+                j_pad = torch.nn.functional.pad(
+                    j_raw, (0, n_lat - j_raw.shape[2]))
+                r = act * (es * r_raw + qs * nll_s[:, None])
+                j = act[:, :, None] * (es * j_pad + qs * g_nll[:, None, :])
 
-    s_opt, _ = lm.lm_minimize(s0, lm_iters, make_value_jac_fn=make_vj)
-    e_opt = exact_error(skeleton, g, node_id, sc, s_opt)
+                def value(x):
+                    nll_x, _ = gmm_ops.neg_log_prob_and_grad(gmm, x)
+                    return act * (es * vfn(x) + qs * nll_x[:, None])
+
+                return r, j, value
+
+            s_opt, _ = lm.lm_minimize(None, s0, cfg.lm_iters,
+                                      make_value_jac_fn=make_vj, **lm_kw)
+        else:
+            raw_make = compiled.make_frozen_root_residuals(
+                *args, ee_node=ee_idx)
+
+            def make_fn(sv):
+                rf = raw_make(sv)
+                return lambda x: act * (es * rf(x) + qs * nll(x)[:, None])
+
+            s_opt, _ = lm.lm_minimize(None, s0, cfg.lm_iters,
+                                      make_residual_fn=make_fn, **lm_kw)
+    e_opt = exact_error(skeleton, g, node_id, sc, s_opt, root_only)
     better = e_opt < e0
     return (torch.where(better[:, None], s_opt, s0),
             torch.minimum(e0, e_opt))
@@ -239,12 +353,14 @@ def full_walk_step(skeleton: Skeleton, g: StackedGraph,
                    path: spline_path.PathSpline, path_table: torch.Tensor,
                    state: WalkState, step_idx: int,
                    sc0: compiled.StepConstraints, draws: StepDraws,
-                   cfg: WalkConfig):
+                   cfg: WalkConfig, root_only: bool, ee_chain=None):
     """One step of the crowd walk -> (new WalkState, StepOutput).
 
     path: the characters' PathSplines ([C] leading axis); path_table:
     `kernels.pack_path_table(path, root offset)`; sc0: this step's user
-    constraint set as [C, ...] tensors."""
+    constraint set as [C, ...] tensors; root_only: every active slot is on
+    the root (`compiled.step_scs_root_only`); ee_chain: with cfg.pallas_ee,
+    `kernels.pack_ee_chain`'s (chain_idx, chain [L, 8] tensor)."""
     dev = state.travelled.device
     c = state.node_id.shape[0]
     node = state.node_id
@@ -278,15 +394,15 @@ def full_walk_step(skeleton: Skeleton, g: StackedGraph,
                                                draws.normal)
     with record_function("walk.select"):
         s = _select(g, state, sc, samples, path, path_table, goal_arc,
-                    n_can_f, root_off)
+                    n_can_f, root_off, ee_chain)
     with record_function("walk.rescore"):
-        err = exact_error(skeleton, g, node, sc, s)
+        err = exact_error(skeleton, g, node, sc, s, root_only)
 
     # ---- gated LM refinement
     if cfg.lm_iters > 0:
         with record_function("walk.lm"):
-            s_ref, err_ref = _refine(skeleton, g, node, sc, s, err,
-                                     cfg.lm_iters)
+            s_ref, err_ref = _refine(skeleton, g, node, sc, s, err, cfg,
+                                     root_only)
             gate = err >= cfg.lm_threshold
             s = torch.where(gate[:, None], s_ref, s)
             err = torch.where(gate, err_ref, err)
@@ -345,24 +461,32 @@ def constrained_walk_full_crowd(skeleton: Skeleton, g: StackedGraph,
     """A crowd of constrained walks, one per path ([C] leading axis).
 
     draws(step) supplies each step's noise (`torch_sampler` for the port's
-    own generator).  Returns (segments [C, S, T, D], n_frames [C, S],
-    node_ids [C, S], errors [C, S])."""
+    own generator); step_scs: host-side per-step constraint sets with a
+    leading [n_steps] axis (numpy leaves).  root_only is derived here from
+    step_scs, as every JAX caller does.  Returns (segments [C, S, T, D],
+    n_frames [C, S], node_ids [C, S], errors [C, S])."""
     cfg = cfg or WalkConfig()
     if cfg.n_samples % kernels.N_BLK != 0:
         raise ValueError(f"n_samples must be a multiple of {kernels.N_BLK}")
     if step_scs is None:
         step_scs = default_step_scs(skeleton, n_steps)
-    check_pallas_selection_contract(skeleton, step_scs)
+    root_only = compiled.step_scs_root_only(step_scs)
+    check_walk_contract(skeleton, step_scs, cfg, root_only)
     dev = start_ids.device
     c = start_ids.shape[0]
     root_off = torch.as_tensor(skeleton.offsets[0], device=dev)
     path_table = kernels.pack_path_table(paths, root_off)
+    ee_chain = None
+    if cfg.pallas_ee is not None:
+        idx, const = kernels.pack_ee_chain(skeleton, cfg.pallas_ee)
+        ee_chain = (idx, torch.as_tensor(const, device=dev))
     state = initial_state(g, start_ids)
     outs = []
     for t in range(n_steps):
         sc0 = step_constraints(step_scs, t, c, dev)
         state, out = full_walk_step(skeleton, g, paths, path_table, state,
-                                    t, sc0, draws(t), cfg)
+                                    t, sc0, draws(t), cfg, root_only,
+                                    ee_chain)
         outs.append(out)
     return (torch.stack([o.frames for o in outs], dim=1),
             torch.stack([o.n_frames for o in outs], dim=1),

@@ -48,10 +48,10 @@ def test_chol_solve_kernel_matches_twin(cuda):
     g = torch.randn((1024, 28), generator=gen, device=cuda)
     a[:2] = 0.0
     g[:2] = 0.0
-    before = kernels.chol_solve.launches
+    before = kernels.launch_counts()["chol_solve"]
     x = kernels.chol_solve(a, g)
     torch.cuda.synchronize()
-    assert kernels.chol_solve.launches == before + 1
+    assert kernels.launch_counts()["chol_solve"] == before + 1
     torch.testing.assert_close(x, kernels.chol_solve_unrolled(a, g),
                                rtol=2e-3, atol=2e-4)
     assert bool((x[:2] == 0).all())
@@ -86,3 +86,101 @@ def test_walk_gpu_matches_cpu(cuda):
     (sg, ng, ig, _), (sc, nc, ic, _) = outs["cuda"], outs["cpu"]
     assert torch.equal(ig, ic) and torch.equal(ng, nc)
     torch.testing.assert_close(sg, sc, rtol=0, atol=1e-2)
+
+
+def _ee_inputs(device, n_chars=256, seed=4):
+    """Kernel B3's inputs on the reference-scale model: random nodes,
+    candidates from each node's GMM, random paths and previous frames, and
+    a RightHand keyframe at (20, 110, 80) on canonical frame 129."""
+    from morphablegraphs_tpu_torch.ops import align
+    from morphablegraphs_tpu_torch.synthesis import walk
+    graph = graph_mod.build_graph_from_dict(
+        synthetic.make_reference_scale_graph_dict())
+    skel, _ = sk.load_bvh(synthetic.REF_BVH)
+    st = graph_mod.stack_graph(graph, device=device)
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    paths = spline_path.stack_paths([_path(rng, 256, device)
+                                     for _ in range(n_chars)])
+    node = torch.randint(0, st.n_nodes, (n_chars,), generator=gen,
+                         device=device)
+    u = torch.rand((n_chars, 128, st.gmm_weights.shape[-1]), generator=gen,
+                   device=device)
+    samples = walk.sample_node_latents(
+        st, node, -torch.log(-torch.log(u.clamp(min=1e-30))),
+        torch.randn((n_chars, 128, st.gmm_means.shape[-1]), generator=gen,
+                    device=device))
+    travelled = torch.rand(n_chars, generator=gen, device=device) * 60.0
+    goal_pos, goal_dir = spline_path.point_and_dir_at_arc_length(
+        paths, travelled + st.avg_step_length[node])
+    n_can = st.n_canonical[node].float()
+    prev = torch.zeros((n_chars, st.n_dim), device=device)
+    prev[:, 3::4] = 1.0
+    prev[:, 2] = travelled
+    off = torch.as_tensor(skel.offsets[0], device=device)
+    idx, chain = kernels.pack_ee_chain(skel, "RightHand")
+    ones = torch.ones((n_chars, 3), device=device)
+    mop = kernels.selection_operator(
+        st.eigen_s[node], st.mean_s[node], st.knots_s[node], st.n_basis_max,
+        st.n_dim, n_can - 1.0, n_can - 1.0, n_can,
+        ee_frame=torch.full_like(n_can, 129.0), ee_chain_idx=idx)
+    cfg = kernels.pack_selection_cfg(
+        paths, align.heading_angle(prev[:, 3:7]), prev[:, :3],
+        torch.zeros(n_chars, device=device), torch.zeros_like(ones),
+        torch.ones(n_chars, device=device), goal_pos, goal_dir, travelled,
+        kf_weight=1.0, dir_weight=0.8, traj_active=1.0, traj_weight=1.0,
+        range_lo=-1e30, range_hi=1e30, root_offset=off, ee_active=1.0,
+        ee_weight=1.0, ee_target=torch.tensor([20.0, 110.0, 80.0],
+                                              device=device) * ones,
+        ee_mask=ones)
+    return (mop.contiguous(), samples[:, :, : st.k_s_max].contiguous(),
+            kernels.pack_path_table(paths, off).contiguous(),
+            cfg.contiguous(), torch.as_tensor(chain, device=device))
+
+
+@pytest.mark.cuda
+def test_ee_score_kernel_matches_twin(cuda):
+    """B3 against its twin on the RightHand chain, and on the same chain with
+    its third joint fixed at a 90-degree rest rotation: errors within B1's
+    bound 0.1 + 5e-3 |x| (the kernel rounds the expanded distance form in
+    another order), argmin agreement on at least 99% of the characters, and
+    the launch is counted."""
+    mop, alphas, table, cfg, chain = _ee_inputs(cuda)
+    fixed = chain.clone()
+    half = np.deg2rad(90.0) / 2
+    fixed[2, 3:7] = torch.tensor([np.cos(half), 0.0, 0.0, np.sin(half)])
+    fixed[2, 7] = 0.0
+    for ch in (chain, fixed):
+        before = kernels.launch_counts()["score_locomotion_candidates_ee"]
+        out = kernels.score_locomotion_candidates(mop, alphas, table, cfg,
+                                                  chain=ch)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()[
+            "score_locomotion_candidates_ee"] == before + 1
+        ref = kernels.score_locomotion_candidates_ref(mop, alphas, table,
+                                                      cfg, chain=ch)
+        assert bool(torch.isfinite(out).all())
+        assert bool(((out - ref).abs() <= 0.1 + 5e-3 * ref.abs()).all())
+        agree = (out.argmin(1) == ref.argmin(1)).float().mean()
+        assert float(agree) >= 0.99
+
+
+@pytest.mark.cuda
+def test_lm_delta_kernel_matches_twin(cuda):
+    """B4 against its twin at the main path's [1024, 49, 28] with lambda over
+    1e-3..10 and radii over 0.1..4 (atol 2e-4, rtol 2e-3, the crowd-solve
+    bounds); zero characters give 0 and the launch is counted."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    j = torch.randn((1024, 49, 28), generator=gen, device=cuda)
+    r = torch.randn((1024, 49), generator=gen, device=cuda)
+    lam = 10.0 ** (torch.rand(1024, generator=gen, device=cuda) * 4 - 3)
+    rad = 0.1 + 3.9 * torch.rand(1024, generator=gen, device=cuda)
+    j[:3] = 0.0
+    r[:3] = 0.0
+    before = kernels.launch_counts()["lm_delta"]
+    d = kernels.lm_delta(j, r, lam, rad)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["lm_delta"] == before + 1
+    torch.testing.assert_close(d, kernels.lm_delta_ref(j, r, lam, rad),
+                               rtol=2e-3, atol=2e-4)
+    assert bool((d[:3] == 0).all())

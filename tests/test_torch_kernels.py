@@ -104,10 +104,10 @@ def test_selection_packing_matches_jax(sel):
                                    rtol=1e-6, atol=1e-6)
         cfg_j = np.array(sel["cfgs"][c])[0]
         cfg_j[20:22] = [-np.inf, np.inf]  # the port passes the range as-is
-        # slots 31+ are the end-effector block of the unported ee kernel
-        np.testing.assert_allclose(cfg_t[c].numpy()[:31], cfg_j[:31],
-                                   rtol=1e-5, atol=1e-5)
-        assert np.all(cfg_t[c].numpy()[31:] == 0.0)
+        # slots 31+ are the (inactive) end-effector block; the JAX package
+        # shifts its zero target by -root_offset too
+        np.testing.assert_allclose(cfg_t[c].numpy(), cfg_j, rtol=1e-5,
+                                   atol=1e-5)
 
 
 def test_score_twin_matches_pallas_kernel(sel):
@@ -120,7 +120,7 @@ def test_score_twin_matches_pallas_kernel(sel):
     cfg = torch.as_tensor(np.stack([np.asarray(c)[0] for c in sel["cfgs"]]))
     alphas = torch.as_tensor(sel["alphas"])
     out_t = kernels.score_locomotion_candidates(mop, alphas, table, cfg)
-    assert kernels.score_locomotion_candidates.launches == 0  # CPU: twin
+    assert sum(kernels.launch_counts().values()) == 0  # CPU: twin
     for c in range(2):
         out_j = np.asarray(pk.score_locomotion_candidates(
             sel["mops"][c], jnp.asarray(sel["alphas"][c]), sel["tables"][c],
@@ -145,7 +145,7 @@ def test_chol_solve_twin_matches_jax(c, k):
     a[-2:] = 0.0
     g[-2:] = 0.0
     x_t = kernels.chol_solve(torch.as_tensor(a), torch.as_tensor(g)).numpy()
-    assert kernels.chol_solve.launches == 0
+    assert kernels.launch_counts()["chol_solve"] == 0
     x_pk = np.asarray(pk.chol_solve_crowd(jnp.asarray(a), jnp.asarray(g),
                                           interpret=True))
     x_un = np.asarray(jax.vmap(lmj.chol_solve_unrolled)(jnp.asarray(a),

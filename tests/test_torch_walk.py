@@ -27,6 +27,9 @@ N_SAMPLES = 128
 MAX_FRAMES = 64
 WALK_KW = dict(max_step_frames=MAX_FRAMES, n_samples=N_SAMPLES, lm_iters=3,
                lm_threshold=5.0)
+# the JAX walk below runs the frozen closed LM; the port's default is the
+# exact LM, as JAX's (tests/test_torch_exact_lm.py covers that one)
+PORT_KW = dict(WALK_KW, lm_frozen=True)
 
 
 def test_categorical_is_argmax_of_gumbel():
@@ -79,7 +82,7 @@ def test_teacher_forced_steps_match_jax(walk_setup):
     draws = tp.port_draws(s["draws"])
     table = kernels.pack_path_table(paths_t, torch.as_tensor(
         skel_t.offsets[0]))
-    cfg = cwt.WalkConfig(**WALK_KW)
+    cfg = cwt.WalkConfig(**PORT_KW)
     scs = cwt.default_step_scs(skel_t, N_STEPS)
     closest = jax.jit(jax.vmap(lambda p, x, a: spj.closest_point(p, x, a)[1]))
 
@@ -93,7 +96,8 @@ def test_teacher_forced_steps_match_jax(walk_setup):
             done=torch.zeros(N_CHARS, dtype=torch.bool))
         new, out = cwt.full_walk_step(
             skel_t, st_t, paths_t, table, state, t,
-            cwt.step_constraints(scs, t, N_CHARS, "cpu"), draws(t), cfg)
+            cwt.step_constraints(scs, t, N_CHARS, "cpu"), draws(t), cfg,
+            root_only=True)
         np.testing.assert_array_equal(out.node_id.numpy(), ids[:, t])
         np.testing.assert_array_equal(out.n_frames.numpy(), nf[:, t])
         np.testing.assert_allclose(out.error.numpy(), errs[:, t], rtol=1e-4,
@@ -122,7 +126,7 @@ def test_whole_crowd_walk_matches_jax(walk_setup):
     start = torch.full((N_CHARS,), s["start"])
     out = cwt.constrained_walk_full_crowd(
         s["skel_t"], s["st_t"], s["paths_t"], start, N_STEPS,
-        draws=tp.port_draws(s["draws"]), cfg=cwt.WalkConfig(**WALK_KW))
+        draws=tp.port_draws(s["draws"]), cfg=cwt.WalkConfig(**PORT_KW))
     t_segs, t_nf, t_ids, t_errs = (a.numpy() for a in out)
     np.testing.assert_array_equal(t_ids, ids)
     np.testing.assert_array_equal(t_nf, nf)

@@ -38,6 +38,52 @@ def model(scale: str):
     return skel_j, st_j, skel_t, gt.from_jax_numpy(to_numpy(st_j))
 
 
+def port_skeleton(skel_j) -> skt.Skeleton:
+    """The port's Skeleton with a JAX Skeleton's topology, offsets and rest
+    rotations (for skeletons built without a BVH file)."""
+    return skt.Skeleton(
+        node_names=skel_j.node_names, parents=skel_j.parents,
+        offsets=np.asarray(skel_j.offsets), node_channels=skel_j.node_channels,
+        animated_joints=skel_j.animated_joints, frame_time=skel_j.frame_time,
+        joint_weights=skel_j.joint_weights,
+        rest_rotations=skel_j.rest_rotations)
+
+
+def bspline_knots(n_basis: int, n_frames: int) -> np.ndarray:
+    """The JAX package's clamped cubic knot vector."""
+    from morphablegraphs_tpu.ops import bspline as bsj
+    return bsj.clamped_knots(n_basis, n_frames)
+
+
+def fixed_joint_skeleton():
+    """JAX's three-node skeleton of tests/test_pallas_kernels.py: an animated
+    Hips, a fixed joint with a 90-degree rest rotation about z, and its
+    tip.  Returns (JAX skeleton, port skeleton)."""
+    half = np.deg2rad(90) / 2
+    rot90z = [float(np.cos(half)), 0.0, 0.0, float(np.sin(half))]
+    skel_j = skj.load_skeleton_json({
+        "root": "Hips", "animated_joints": ["Hips"],
+        "nodes": {
+            "Hips": {"offset": [0, 1, 0], "children": ["Fixed"]},
+            "Fixed": {"offset": [0, 10, 0], "children": ["Tip"],
+                      "rotation": rot90z},
+            "Tip": {"offset": [0, 5, 0], "children": []},
+        }})
+    return skel_j, port_skeleton(skel_j)
+
+
+def ee_step_scs(skel_j, joint: str, frame: float, position, n_steps: int,
+                weight: float = 1.0):
+    """bench.py's ee constraint sets: a keyframe on `joint` in user slot 2
+    on every step.  Returns (JAX host sets, the port's host sets)."""
+    base = cj.set_keyframe_constraint(
+        cj.empty_step_constraints(skel_j, 0), 2, skel_j, joint, frame,
+        position=np.asarray(position, np.float32), weight=weight)
+    scs_j = jax.tree.map(lambda x: np.broadcast_to(
+        np.asarray(x), (n_steps,) + np.shape(x)).copy(), base)
+    return scs_j, ct.from_jax_numpy(scs_j, host=True)
+
+
 def rand_paths(n: int, seed: int = 0, granularity: int = 256,
                seg_len: float = 60.0):
     """n random 4-point walking paths (JAX PathSplines)."""
