@@ -13,20 +13,30 @@ Phases, one line each (or a few):
   5. kernel B3 (B1 plus a RightHand end-effector keyframe) against its twin
      at the same shapes, and on a chain with a fixed, rest-rotated joint;
   6. kernel B4 (the fused LM step) against its twin at [1024, 49, 28];
-  7. the serving entry point, BatchedGenerator on the reference-scale model,
-     answers 8 trajectory requests with the exact LM; B1 and B2 must have
-     launched;
-  8. small walks on the GPU path against the same walks on the CPU path
+  7. kernel B5 (the GMM log-likelihood and its gradient) against its twins
+     at [1024 rows over all nodes, K 5, D 28];
+  8. kernel B6 (the crowd back-projection) against its twin at [1024
+     characters over all nodes, T 160, n_basis 16, n_dim 79, K 25] with
+     time-warped bases, and at the TPU kernel's shared-operand signature;
+  9. the serving entry point, BatchedGenerator on the reference-scale model,
+     answers 8 trajectory requests with the exact LM; B1, B2 and B6 must
+     have launched;
+ 10. small walks on the GPU path against the same walks on the CPU path
      (the kernels' twins) with the same random draws: root-only without
-     and with the frozen LM, the ee walk, the exact-LM walk and the ee walk
-     with the fused LM step;
-  9. the benchmark crowds, 1024 characters x 8 steps, 128 candidates, 160
+     and with the frozen LM, the ee walk, the exact-LM walk, the ee walk
+     with the fused LM step, the random walks (concatenating and segment
+     form) and the boundary-row constrained walk;
+ 11. the benchmark crowds, 1024 characters x 8 steps, 128 candidates, 160
      frames per step, 3 LM iterations, threshold 5.0, as bench.py runs
      them: the root-only headline (frozen LM), `ee` (a RightHand keyframe,
      frozen-ee LM), `ee` with the fused LM step (B4 instead of B2),
      `lm_exact` and `ee_exact` (the exact LM): frames/s and the mean
-     constraint error, with the kernels each run launched;
- 10. one more root-only and one more ee crowd run under torch.profiler:
+     constraint error, with the kernels each run launched; then the random
+     crowds at BASELINE config 5's shape (1024 characters x 8 steps of
+     random_walk_segments, 160 frames a step) and in the concatenating
+     form, with the random walk's largest root seam jump beside the numpy
+     reference concatenation's (tests/reference_oracle.py);
+ 12. one more root-only, ee and config-5 crowd run under torch.profiler:
      device busy and idle share, time per walk stage, the top kernels.
 Then a JSON line of per-kernel results, and as the last line
 {"ok": true, "device": {...}}.  Any failed check exits nonzero; without a
@@ -34,6 +44,7 @@ CUDA device the script fails before it prints any result.
 """
 
 import json
+import pathlib
 import subprocess
 import sys
 import time
@@ -51,9 +62,17 @@ B2_RTOL, B2_ATOL = 2e-3, 2e-4  # as the JAX package's crowd-solve test
 # B4's deltas are clipped to radii <= 4; kernel and twin sum JtJ in other
 # orders, so B2's bound holds for the solve of the same normal equations
 B4_RTOL, B4_ATOL = 2e-3, 2e-4
+# B5: the JAX package's bound for its Pallas kernel against XLA (fp32
+# Mahalanobis sums of 28 terms in other orders); the gradient's bound is
+# relative to each entry too
+B5_RTOL, B5_ATOL = 1e-4, 1e-3
+# B6: fp32 sums of 25 (eigen) and 16 (basis) products of values up to a few
+# hundred cm, taken in other orders by kernel and twin
+B6_RTOL, B6_ATOL = 1e-5, 1e-3
 WALK_FRAMES_ATOL = 1e-2  # GPU vs CPU walk frames, the whole-walk bound
 KERNEL_CHARS = 1024  # characters of the kernel-vs-twin checks
 CROWD_CHARS, CROWD_STEPS = 1024, 8  # the benchmark crowds (bench.py)
+RANDOM_FRAMES = 160  # BASELINE config 5's frames a step (run_all.py)
 EE_JOINT = "RightHand"  # bench.py's ee config: a RightHand keyframe at
 EE_TARGET, EE_FRAME = (20.0, 110.0, 80.0), 129.0  # canonical frame 129
 
@@ -312,6 +331,96 @@ def phase_b4(device):
     return float(err.max()), ms, plain_ms
 
 
+def _node_draws(stacked, n_rows, device, seed, scale=1.0):
+    """One GMM latent per row, rows spread over every node of the graph:
+    (node ids [n_rows], latents [n_rows, L]); the normals scaled by
+    `scale` reach past the mixtures."""
+    import torch
+    from morphablegraphs_tpu_torch.synthesis import walk
+    gen = torch.Generator(device=device).manual_seed(seed)
+    node = torch.arange(n_rows, device=device) % stacked.n_nodes
+    d = walk.torch_sampler(gen, stacked, n_rows, 1)(0)
+    return node, walk.sample_node_latent(stacked, node, d.comp_gumbel[:, 0],
+                                         scale * d.normal[:, 0])
+
+
+def phase_b5(stacked, device):
+    """B5 against its twins at [1024, K 5, D 28]: rows over all nodes, drawn
+    from their node's mixture with the normals scaled 1.5x; log p and the
+    gradient of -log p within their bounds.  Times the value-and-gradient
+    call the LM makes."""
+    import torch
+    from morphablegraphs_tpu_torch.ops import kernels
+    node, x = _node_draws(stacked, KERNEL_CHARS, device, seed=9, scale=1.5)
+    args = (x, stacked.gmm_weights, stacked.gmm_means, stacked.gmm_prec_chol)
+    lp_k = kernels.gmm_scores(*args, mix_id=node)
+    nll_k, g_k = kernels.gmm_nll_and_grad(*args, node)
+    lp_t = kernels.gmm_scores_ref(*args, mix_id=node)
+    nll_t, g_t = kernels.gmm_nll_and_grad_ref(*args, node)
+    torch.cuda.synchronize()
+    errs = {"logp": (lp_k - lp_t).abs(), "nll": (nll_k - nll_t).abs(),
+            "grad": (g_k - g_t).abs()}
+    refs = {"logp": lp_t, "nll": nll_t, "grad": g_t}
+    ms = _time_ms(lambda: kernels.gmm_nll_and_grad(*args, node), 50)
+    plain_ms = _time_ms(lambda: kernels.gmm_nll_and_grad_ref(*args, node), 5)
+    worst = max(float(e.max()) for e in errs.values())
+    print(f"B5 gmm_nll_and_grad [{KERNEL_CHARS}, K={args[1].shape[1]}, "
+          f"D={x.shape[1]}] over {stacked.n_nodes} nodes: "
+          + " ".join(f"max_abs_err_{k}={float(e.max()):.3e}"
+                     for k, e in errs.items())
+          + f" (|log p| up to {float(lp_t.abs().max()):.1f}, |grad| up to "
+          f"{float(g_t.abs().max()):.1f}; tol {B5_ATOL}+{B5_RTOL}*|x|) "
+          f"kernel_ms={ms:.4f} twin_ms={plain_ms:.4f}", flush=True)
+    for k, e in errs.items():
+        if bool((e > B5_ATOL + B5_RTOL * refs[k].abs()).any()):
+            _fail(f"B5 disagrees with its twin ({k})")
+    if not all(bool(torch.isfinite(t).all()) for t in (lp_k, nll_k, g_k)):
+        _fail("B5 produced non-finite values")
+    return worst, ms, plain_ms
+
+
+def phase_b6(stacked, device):
+    """B6 against its twin at the walk's shape: 1024 characters spread over
+    all nodes, latents drawn from the node GMMs, each character's basis
+    warped by its own temporal latents (T = 160); then at the TPU kernel's
+    signature (one node's operator and one basis shared by the crowd)."""
+    import torch
+    from morphablegraphs_tpu_torch.ops import kernels
+    from morphablegraphs_tpu_torch.synthesis import walk
+    node, s = _node_draws(stacked, KERNEL_CHARS, device, seed=10)
+    basis, _ = walk.warped_basis(stacked, node, s[:, stacked.k_s_max:],
+                                 RANDOM_FRAMES)
+    alpha = s[:, : stacked.k_s_max].contiguous()
+    cases = {"gathered": (alpha, stacked.eigen_s, stacked.mean_s, basis,
+                          node),
+             "shared": (alpha, stacked.eigen_s[1], stacked.mean_s[1],
+                        basis[0].contiguous(), None)}
+    worst, times = 0.0, {}
+    for label, (a, e, m, b, mix) in cases.items():
+        out_k = kernels.crowd_back_project(a, e, m, b, mix_id=mix)
+        out_t = kernels.crowd_back_project_ref(a, e, m, b, mix_id=mix)
+        torch.cuda.synchronize()
+        err = (out_k - out_t).abs()
+        ms = _time_ms(lambda: kernels.crowd_back_project(a, e, m, b,
+                                                          mix_id=mix), 50)
+        plain_ms = _time_ms(lambda: kernels.crowd_back_project_ref(
+            a, e, m, b, mix_id=mix), 5)
+        print(f"B6 crowd_back_project ({label}) [{KERNEL_CHARS}, T="
+              f"{b.shape[-2]}, n_basis={b.shape[-1]}, n_dim="
+              f"{out_k.shape[-1]}, K={a.shape[1]}]: max_abs_err="
+              f"{float(err.max()):.3e} (|x| up to "
+              f"{float(out_t.abs().max()):.1f}; tol {B6_ATOL}+{B6_RTOL}*|x|) "
+              f"kernel_ms={ms:.4f} twin_ms={plain_ms:.4f} "
+              f"({out_k.numel() * 4 / ms / 1e6:.0f} GB/s of output)",
+              flush=True)
+        if not bool(torch.isfinite(out_k).all()) or \
+                bool((err > B6_ATOL + B6_RTOL * out_t.abs()).any()):
+            _fail(f"B6 ({label}) disagrees with its twin")
+        worst = max(worst, float(err.max()))
+        times[label] = (ms, plain_ms)
+    return worst, times["gathered"]
+
+
 def _traj_request(end_x, end_z):
     return {
         "startPose": {"position": [0, 0, 0], "orientation": [0, 0, 0]},
@@ -353,8 +462,9 @@ def phase_serve(graph, device):
           f"{finite}, launches {counts}", flush=True)
     if not finite or min(n_frames) <= 30:
         _fail("serving output is not finite or too short")
-    if counts["score_locomotion_candidates"] <= 0 or counts["chol_solve"] <= 0:
-        _fail("serving did not launch B1 and B2")
+    if any(counts[k] <= 0 for k in ("score_locomotion_candidates",
+                                    "chol_solve", "crowd_back_project")):
+        _fail("serving did not launch B1, B2 and B6")
     return counts
 
 
@@ -369,16 +479,20 @@ WALKS = {
     "lm_exact": (dict(lm_frozen=False), False),
     "ee_exact": (dict(pallas_ee=EE_JOINT, lm_frozen=False), True),
 }
-# kernels each walk must launch (> 0) and must not launch (== 0)
+# kernels each walk must launch (> 0) and must not launch (== 0): every
+# walk back-projects through B6; the closed frozen LM takes its GMM term
+# from B5, the exact LM evaluates it under forward mode in plain PyTorch
 WALK_KERNELS = {
-    "root": (("score_locomotion_candidates", "chol_solve"), ("lm_delta",)),
-    "ee": (("score_locomotion_candidates_ee", "chol_solve"), ("lm_delta",)),
-    "ee_fused": (("score_locomotion_candidates_ee", "lm_delta"),
-                 ("chol_solve",)),
-    "lm_exact": (("score_locomotion_candidates", "chol_solve"),
-                 ("lm_delta",)),
-    "ee_exact": (("score_locomotion_candidates_ee", "chol_solve"),
-                 ("lm_delta",)),
+    "root": (("score_locomotion_candidates", "chol_solve", "gmm_scores",
+              "crowd_back_project"), ("lm_delta",)),
+    "ee": (("score_locomotion_candidates_ee", "chol_solve", "gmm_scores",
+            "crowd_back_project"), ("lm_delta",)),
+    "ee_fused": (("score_locomotion_candidates_ee", "lm_delta", "gmm_scores",
+                  "crowd_back_project"), ("chol_solve",)),
+    "lm_exact": (("score_locomotion_candidates", "chol_solve",
+                  "crowd_back_project"), ("lm_delta", "gmm_scores")),
+    "ee_exact": (("score_locomotion_candidates_ee", "chol_solve",
+                  "crowd_back_project"), ("lm_delta", "gmm_scores")),
 }
 
 
@@ -412,6 +526,7 @@ def _stepwise(skel, stacked, paths, start, n_steps, draws, scs, cfg, dev,
     from morphablegraphs_tpu_torch.constraints import compiled
     from morphablegraphs_tpu_torch.ops import kernels
     from morphablegraphs_tpu_torch.synthesis import constrained_walk as cw
+    from morphablegraphs_tpu_torch.synthesis import walk
     root_only = compiled.step_scs_root_only(scs)
     cw.check_walk_contract(skel, scs, cfg, root_only)
     table = kernels.pack_path_table(paths, torch.as_tensor(
@@ -433,7 +548,7 @@ def _stepwise(skel, stacked, paths, start, n_steps, draws, scs, cfg, dev,
         state, out = cw.full_walk_step(
             skel, stacked, paths, table, state, t,
             cw.step_constraints(scs, t, c, dev),
-            cw.StepDraws(d.comp_gumbel.to(dev), d.normal.to(dev),
+            walk.StepDraws(d.comp_gumbel.to(dev), d.normal.to(dev),
                          d.trans_gumbel.to(dev)), cfg, root_only, ee)
         outs.append(out)
     return ins, outs, state
@@ -456,11 +571,12 @@ def phase_reference(stacked_gpu, skel):
     import torch
     from morphablegraphs_tpu_torch.ops import spline_path
     from morphablegraphs_tpu_torch.synthesis import constrained_walk as cw
+    from morphablegraphs_tpu_torch.synthesis import walk
     n_chars, n_steps = 8, 3
     rng = np.random.default_rng(3)
     paths = [rand_path(rng, 256, "cpu") for _ in range(n_chars)]
     gen = torch.Generator().manual_seed(11)
-    cpu_draws = cw.torch_sampler(gen, stacked_gpu, n_chars, 128)
+    cpu_draws = walk.torch_sampler(gen, stacked_gpu, n_chars, 128)
     draws = [cpu_draws(t) for t in range(n_steps)]
     start = stacked_gpu.node_id(("walk", "beginLeftStance"))
     for name, lm_iters, held in (("root", 0, True), ("root", 3, True),
@@ -526,6 +642,7 @@ def phase_crowd(name, stacked, skel, device, card: str, reps: int = 3,
     import torch
     from morphablegraphs_tpu_torch.ops import kernels, spline_path
     from morphablegraphs_tpu_torch.synthesis import constrained_walk as cw
+    from morphablegraphs_tpu_torch.synthesis import walk
     n_chars = CROWD_CHARS
     rng = np.random.default_rng(0)
     paths = spline_path.stack_paths([rand_path(rng, 256, device)
@@ -539,7 +656,7 @@ def phase_crowd(name, stacked, skel, device, card: str, reps: int = 3,
         gen = torch.Generator(device=device).manual_seed(seed)
         return cw.constrained_walk_full_crowd(
             skel, stacked, paths, start, steps,
-            draws=cw.torch_sampler(gen, stacked, n_chars, 128),
+            draws=walk.torch_sampler(gen, stacked, n_chars, 128),
             step_scs=scs[steps], cfg=cfg)
 
     run(1, 1)  # warm-up
@@ -570,6 +687,140 @@ def phase_crowd(name, stacked, skel, device, card: str, reps: int = 3,
         _fail(f"crowd {name}: launched {counts}, needs {must} and not "
               f"{must_not}")
     return float(np.median(times)), fps, errors, counts, run
+
+
+def phase_random_reference(stacked_gpu):
+    """The random walks (concatenating and segment form) and the
+    boundary-row constrained walk, small, on the GPU path (B6) and the CPU
+    path (its twin) with the same draws: node ids, frame counts and valid
+    frames (within the whole-walk bound 1e-2) must agree."""
+    import torch
+    from morphablegraphs_tpu_torch.ops import spline_path
+    from morphablegraphs_tpu_torch.synthesis import constrained_walk as cw
+    from morphablegraphs_tpu_torch.synthesis import walk
+    n_chars, n_steps = 8, 4
+    start = stacked_gpu.node_id(("walk", "beginLeftStance"))
+    gen = torch.Generator().manual_seed(12)
+    one = [walk.torch_sampler(gen, stacked_gpu, n_chars, 1)(t)
+           for t in range(n_steps)]
+    many = [walk.torch_sampler(gen, stacked_gpu, n_chars, 64)(t)
+            for t in range(n_steps)]
+    rng = np.random.default_rng(4)
+    paths = [rand_path(rng, 256, "cpu") for _ in range(n_chars)]
+
+    def on(draws, dev):
+        return lambda t: walk.StepDraws(*(x.to(dev) for x in (
+            draws[t].comp_gumbel, draws[t].normal, draws[t].trans_gumbel)))
+
+    def runs(dev):
+        st = stacked_gpu.to(dev)
+        ids = torch.full((n_chars,), start, device=dev)
+        buf, nv, w_ids, _ = walk.random_walk(st, ids, n_steps, on(one, dev),
+                                             max_step_frames=RANDOM_FRAMES)
+        seg, nf, s_ids, _ = walk.random_walk_segments(
+            st, ids, n_steps, on(one, dev), max_step_frames=RANDOM_FRAMES)
+        bseg, bnf, b_ids, _ = cw.constrained_walk(
+            st, spline_path.stack_paths([p.to(dev) for p in paths]), ids,
+            n_steps, on(many, dev), max_step_frames=RANDOM_FRAMES)
+        return {"random_walk": (buf[:, None], nv[:, None], w_ids),
+                "random_walk_segments": (seg, nf, s_ids),
+                "constrained_walk (boundary rows)": (bseg, bnf, b_ids)}
+
+    gpu, cpu = runs("cuda"), runs("cpu")
+    for name, (fg, ng, ig) in gpu.items():
+        fc, nc, ic = cpu[name]
+        fg, ng, ig = fg.cpu(), ng.cpu(), ig.cpu()
+        same = torch.equal(ig, ic) and torch.equal(ng, nc)
+        valid = (torch.arange(fg.shape[2])[None, None] < nc[..., None])
+        diff = float(((fg - fc).abs() * valid[..., None]).max())
+        print(f"reference {name}: GPU vs CPU ({n_chars} chars x {n_steps} "
+              f"steps): node ids and frame counts equal={same}, max frame "
+              f"diff={diff:.3e} (bound {WALK_FRAMES_ATOL})", flush=True)
+        if not same:
+            _fail(f"the GPU {name} took other nodes than the CPU walk")
+        if diff > WALK_FRAMES_ATOL:
+            _fail(f"the GPU {name}'s frames disagree with the CPU walk's")
+
+
+def _seam_jumps(stacked, buf, n_valid, ids, latents, n_chars: int = 8):
+    """The largest root jump between consecutive frames of the first
+    n_chars concatenated random walks, and of the same walks' clips
+    concatenated by the numpy reference (tests/reference_oracle.py, BASELINE
+    config 2's anchor)."""
+    import torch
+    from morphablegraphs_tpu_torch.synthesis import walk
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tests"))
+    from reference_oracle import oracle_align_concat
+    ours, oracle = 0.0, 0.0
+    for c in range(n_chars):
+        frames = buf[c, : int(n_valid[c])].cpu().numpy()
+        ours = max(ours, float(np.linalg.norm(np.diff(frames[:, :3], axis=0),
+                                              axis=1).max()))
+        steps = [t for t in range(ids.shape[1]) if int(ids[c, t]) >= 0]
+        clips = []
+        for t in steps:
+            f, n = walk.back_project_node(stacked, ids[c, t:t + 1],
+                                          latents[c, t:t + 1], RANDOM_FRAMES)
+            clips.append(f[0, : int(n[0])].cpu().numpy())
+        ref = oracle_align_concat(clips, window=20)[:, :3]
+        oracle = max(oracle, float(np.linalg.norm(np.diff(ref, axis=0),
+                                                  axis=1).max()))
+    return ours, oracle
+
+
+def phase_random_crowd(name, stacked, device, card: str, reps: int = 3):
+    """A random-walk crowd of 1024 characters x 8 steps, 160 frames a step
+    (BASELINE config 5): `segments` is random_walk_segments, the benchmark's
+    form; `concat` is random_walk, which appends to one buffer per
+    character.  A warm-up run, then `reps` timed runs on fresh draws.
+    Returns (median seconds, median frames/s, launches, run)."""
+    import torch
+    from morphablegraphs_tpu_torch.ops import kernels
+    from morphablegraphs_tpu_torch.synthesis import walk
+    start = torch.full((CROWD_CHARS,),
+                       stacked.node_id(("walk", "beginLeftStance")),
+                       device=device)
+    fn = walk.random_walk_segments if name == "segments" else walk.random_walk
+
+    def run(seed):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return fn(stacked, start, CROWD_STEPS,
+                  walk.torch_sampler(gen, stacked, CROWD_CHARS, 1),
+                  max_step_frames=RANDOM_FRAMES)
+
+    run(1)  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    rates, times, finite = [], [], True
+    for seed in range(2, 2 + reps):
+        t0 = time.perf_counter()
+        frames, counts, ids, latents = run(seed)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        times.append(dt)
+        rates.append(float(counts.sum()) / dt)
+        finite = finite and bool(torch.isfinite(frames).all())
+    launches = kernels.launch_counts()
+    fps = float(np.median(rates))
+    print(f"crowd random {name}: {CROWD_CHARS} chars x {CROWD_STEPS} steps, "
+          f"{RANDOM_FRAMES} frames a step, on {card}: median {fps:.1f} "
+          f"frames/s over {reps} runs (seconds {times}, frames/s {rates}), "
+          f"finite={finite}, launches {launches}", flush=True)
+    others = [k for k, v in launches.items() if v and k != "crowd_back_project"]
+    if not finite or min(rates) <= 0:
+        _fail(f"crowd random {name}: output is not finite or empty")
+    if launches["crowd_back_project"] <= 0 or others:
+        _fail(f"crowd random {name}: launched {launches}, needs B6 only")
+    if name == "concat":
+        ours, oracle = _seam_jumps(stacked, frames, counts, ids, latents)
+        print(f"crowd random concat: max root seam jump {ours:.3f} cm/frame "
+              f"over 8 walks, the numpy reference concatenation of the same "
+              f"clips {oracle:.3f} (ratio {ours / max(oracle, 1e-9):.3f})",
+              flush=True)
+        if not ours <= 1.01 * oracle + 1e-3:
+            _fail("the random walk's seams jump further than the reference "
+                  "concatenation's")
+    return float(np.median(times)), fps, launches, run
 
 
 def phase_profile(name, run, crowd_seconds: float):
@@ -625,7 +876,7 @@ def main():
     import torch
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
-    from morphablegraphs_tpu_torch.ops import cuda_build, kernels
+    from morphablegraphs_tpu_torch.ops import cuda_build
 
     device = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)
@@ -646,17 +897,24 @@ def main():
     b2_err, b2_ms, b2_plain = phase_b2(device)
     b3_err, b3_times = phase_b3(stacked, skel, device)
     b4_err, b4_ms, b4_plain = phase_b4(device)
+    b5_err, b5_ms, b5_plain = phase_b5(stacked, device)
+    b6_err, (b6_ms, b6_plain) = phase_b6(stacked, device)
 
     serve_counts = phase_serve(graph, device)
     phase_reference(stacked, skel)
+    phase_random_reference(stacked)
     crowds = {name: phase_crowd(name, stacked, skel, device, smi)
               for name in WALKS}
     fused, unfused = crowds["ee_fused"][1], crowds["ee"][1]
     print(f"crowd ee: LM step through B4 {fused:.1f} frames/s vs through "
           f"B2 {unfused:.1f} frames/s (ratio {fused / unfused:.3f})",
           flush=True)
+    randoms = {name: phase_random_crowd(name, stacked, device, smi)
+               for name in ("segments", "concat")}
     for name in ("root", "ee"):
         phase_profile(name, crowds[name][4], crowds[name][0])
+    phase_profile("random segments (config 5)", randoms["segments"][3],
+                  randoms["segments"][0])
 
     b1_ms, b1_plain = b1_times[264]
     b3_ms, b3_plain = b3_times[264]
@@ -678,7 +936,15 @@ def main():
         {"name": "lm_delta", "route": "cuda",
          "source": src + "lm_delta.cu", "replaces": tpu + "886",
          "launches": crowds["ee_fused"][3]["lm_delta"],
-         "max_abs_err": b4_err, "ms": b4_ms, "plain_ms": b4_plain}]}),
+         "max_abs_err": b4_err, "ms": b4_ms, "plain_ms": b4_plain},
+        {"name": "gmm_scores", "route": "cuda",
+         "source": src + "gmm_scores.cu", "replaces": tpu + "163",
+         "launches": crowds["root"][3]["gmm_scores"],
+         "max_abs_err": b5_err, "ms": b5_ms, "plain_ms": b5_plain},
+        {"name": "crowd_back_project", "route": "cuda",
+         "source": src + "back_project.cu", "replaces": tpu + "76",
+         "launches": randoms["segments"][2]["crowd_back_project"],
+         "max_abs_err": b6_err, "ms": b6_ms, "plain_ms": b6_plain}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,5 +1,6 @@
 // One warp's Cholesky solve of a k x k SPD system held in shared memory,
-// shared by kernels B2 (chol_solve.cu) and B4 (lm_delta.cu).
+// shared by kernels B2 (chol_solve.cu) and B4 (lm_delta.cu); kernel B5
+// (gmm_scores.cu) uses its warp_sum.
 //
 // L holds the full matrix on entry (row-major, only its lower triangle is
 // read) and its Cholesky factor on exit.  Left-looking: lanes split the

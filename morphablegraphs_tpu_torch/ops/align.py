@@ -71,3 +71,45 @@ def smooth_transition(prev_frame: torch.Tensor, frames: torch.Tensor,
     factors = smoothing_factors(window, t, frames.dtype, frames.device)
     magnitude = prev_frame - frames[..., 0, :] * sign[..., 0, :]
     return frames * sign + factors[:, None] * magnitude[..., None, :]
+
+
+def align_clip(prev_last: torch.Tensor, new_frames: torch.Tensor,
+               window: int) -> torch.Tensor:
+    """Align and seam-smooth clips new_frames [..., S, D] against the last
+    frames prev_last [..., D] of the motions so far (append_frames without
+    the write)."""
+    q_y, delta = node_aligning_2d_transform(prev_last, new_frames[..., 0, :])
+    return smooth_transition(prev_last, transform_frames(new_frames, q_y,
+                                                         delta), window)
+
+
+def append_frames(buffer: torch.Tensor, n_valid: torch.Tensor,
+                  new_frames: torch.Tensor, n_new: torch.Tensor,
+                  window: int = 20, active=None):
+    """Append each character's clip to its motion: align new_frames
+    [C, S, D] to buffer[c, n_valid[c] - 1] and write all S rows at offset
+    n_valid[c] of buffer [C, MAX_T, D], IN PLACE; n_valid grows by n_new
+    [C].  A character's first clip (n_valid 0) is written unaligned.  Rows
+    past n_valid + n_new are garbage that later appends overwrite.
+
+    A clip whose whole S-row slab would pass the buffer's end is dropped
+    and n_valid stays, as are the clips of characters not in `active` [C]
+    (default: all append).  Returns (buffer, new n_valid)."""
+    c, s, _ = new_frames.shape
+    max_t = buffer.shape[1]
+    rows = torch.arange(c, device=buffer.device)
+    prev_last = buffer[rows, torch.clamp(n_valid - 1, min=0).long()]
+    aligned = torch.where((n_valid > 0)[:, None, None],
+                          align_clip(prev_last, new_frames, window),
+                          new_frames)
+    write = n_valid + s <= max_t
+    if active is not None:
+        write = write & active
+    # characters that do not write rewrite their rows' own values (at
+    # in-range columns), so the scatter needs no data-dependent shapes
+    cols = torch.clamp(n_valid.long()[:, None]
+                       + torch.arange(s, device=buffer.device), max=max_t - 1)
+    ri = rows[:, None].expand(c, s)
+    buffer[ri, cols] = torch.where(write[:, None, None], aligned,
+                                   buffer[ri, cols])
+    return buffer, torch.where(write, n_valid + n_new, n_valid)

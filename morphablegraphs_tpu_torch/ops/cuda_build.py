@@ -53,8 +53,11 @@ def _declare(lib):
                                      vp]
     lib.mg_chol_solve.argtypes = [vp, vp, vp, i, i, vp]
     lib.mg_lm_delta.argtypes = [vp, vp, vp, vp, vp, i, i, i, f, vp]
+    lib.mg_back_project.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, i,
+                                    i, vp]
+    lib.mg_gmm_scores.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, vp]
     for fn in (lib.mg_score_loco, lib.mg_score_loco_ee, lib.mg_chol_solve,
-               lib.mg_lm_delta):
+               lib.mg_lm_delta, lib.mg_back_project, lib.mg_gmm_scores):
         fn.restype = i
     return lib
 

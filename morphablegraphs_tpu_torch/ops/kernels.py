@@ -9,6 +9,12 @@
 * B2 `chol_solve` (csrc/chol_solve.cu): the crowd's batched SPD solve.
 * B4 `lm_delta` (csrc/lm_delta.cu): the whole LM step block (JtJ, Jtr,
   Marquardt damping, Cholesky, trust clip) in one kernel.
+* B5 `gmm_scores` / `gmm_nll_and_grad` (csrc/gmm_scores.cu): the mixture
+  log-likelihood of each row under its own mixture, with the gradient of
+  -log p in the same pass (the LM's naturalness term).
+* B6 `crowd_back_project` (csrc/back_project.cu): fPCA back-projection and
+  B-spline evaluation of every character's latent (each walk step's
+  frames).
 
 A wrapper given CPU tensors runs the twin; given CUDA tensors it launches
 the kernel (or raises).  Each wrapper adds one to its kernel's entry of
@@ -22,7 +28,7 @@ import math
 import numpy as np
 import torch
 
-from . import bspline, cuda_build
+from . import bspline, cuda_build, gmm as gmm_ops
 
 N_EVAL = 19  # goal kf + dir + 16 traj samples + frame 0 (alignment)
 CH = 8  # root channels per eval frame, padded (x y z qw qx qy qz _)
@@ -34,7 +40,8 @@ _PI = math.pi
 
 _LAUNCHES = {"score_locomotion_candidates": 0,
              "score_locomotion_candidates_ee": 0,
-             "chol_solve": 0, "lm_delta": 0}
+             "chol_solve": 0, "lm_delta": 0, "gmm_scores": 0,
+             "crowd_back_project": 0}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -515,6 +522,176 @@ def lm_delta(j: torch.Tensor, r: torch.Tensor, lam: torch.Tensor,
             out.data_ptr(), c, n_res, k, DAMP_FLOOR_REL, stream),
             "lm_delta launch")
     _LAUNCHES["lm_delta"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# B5: mixture log-likelihood (and its gradient) per row
+# ---------------------------------------------------------------------------
+
+GMM_MAX_DIM = 64  # kernel B5: lanes loop over at most two columns each
+
+
+def _mixture_rows(x, weights, means, prec_chol, mix_id):
+    """Both signatures of B5 as the stacked one: with mix_id None a single
+    mixture (weights [K], means [K, D], prec_chol [K, D, D]) shared by
+    every row; else stacked [M, ...] mixtures and mix_id [C]."""
+    if mix_id is None:
+        weights, means, prec_chol = weights[None], means[None], prec_chol[None]
+        mix_id = torch.zeros(x.shape[0], dtype=torch.long, device=x.device)
+    m, k, d = means.shape
+    if x.dim() != 2 or x.shape[1] != d or weights.shape != (m, k) \
+            or prec_chol.shape != (m, k, d, d) \
+            or mix_id.shape != x.shape[:1]:
+        raise ValueError("gmm_scores expects x [C, D], weights [M, K], "
+                         "means [M, K, D], prec_chol [M, K, D, D] and "
+                         "mix_id [C] (or one unstacked mixture)")
+    return weights, means, prec_chol, mix_id
+
+
+def _row_gmm(weights, means, prec_chol, mix_id) -> gmm_ops.GMM:
+    return gmm_ops.GMM(weights[mix_id], means[mix_id], prec_chol[mix_id],
+                       prec_chol[mix_id])
+
+
+def gmm_scores_ref(x, weights, means, prec_chol, mix_id=None):
+    """Plain PyTorch twin of kernel B5's value: `gmm.log_prob` of each row
+    under its gathered mixture -> [C]."""
+    args = _mixture_rows(x, weights, means, prec_chol, mix_id)
+    return gmm_ops.log_prob(_row_gmm(*args), x)
+
+
+def gmm_nll_and_grad_ref(x, weights, means, prec_chol, mix_id):
+    """Plain PyTorch twin of kernel B5 with its gradient:
+    `gmm.neg_log_prob_and_grad` on the gathered mixtures -> ([C], [C, D])."""
+    args = _mixture_rows(x, weights, means, prec_chol, mix_id)
+    return gmm_ops.neg_log_prob_and_grad(_row_gmm(*args), x)
+
+
+def _launch_gmm(x, weights, means, prec_chol, mix_id, with_grad: bool):
+    weights, means, prec_chol, mix_id = (t.contiguous() for t in _mixture_rows(
+        x, weights, means, prec_chol, mix_id))
+    x = x.contiguous()
+    _check_cuda("gmm_scores", x, weights, means, prec_chol)
+    c, d = x.shape
+    m, k = weights.shape
+    if d > GMM_MAX_DIM:
+        raise ValueError(f"gmm_scores: the kernel takes D <= {GMM_MAX_DIM} "
+                         f"latent dims, got {d}")
+    mix_id = mix_id.to(device=x.device, dtype=torch.long).contiguous()
+    logp = torch.empty(c, dtype=torch.float32, device=x.device)
+    grad = torch.empty_like(x) if with_grad else None
+    if c == 0:
+        return logp, grad
+    lib = cuda_build.load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        cuda_build.check(lib.mg_gmm_scores(
+            x.data_ptr(), weights.data_ptr(), means.data_ptr(),
+            prec_chol.data_ptr(), mix_id.data_ptr(), logp.data_ptr(),
+            None if grad is None else grad.data_ptr(), c, m, k, d, stream),
+            "gmm_scores launch")
+    _LAUNCHES["gmm_scores"] += 1
+    return logp, grad
+
+
+def gmm_scores(x: torch.Tensor, weights: torch.Tensor, means: torch.Tensor,
+               prec_chol: torch.Tensor, mix_id=None) -> torch.Tensor:
+    """Mixture log-likelihood of each row (kernel B5): x [C, D] under one
+    mixture (weights [K], means [K, D], prec_chol [K, D, D]; the TPU
+    kernel's signature) or, with mix_id [C], under row mix_id[c] of stacked
+    mixtures [M, ...] -> log p [C]."""
+    if x.device.type == "cpu":
+        return gmm_scores_ref(x, weights, means, prec_chol, mix_id)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    return _launch_gmm(x, weights, means, prec_chol, mix_id, False)[0]
+
+
+def gmm_nll_and_grad(x: torch.Tensor, weights: torch.Tensor,
+                     means: torch.Tensor, prec_chol: torch.Tensor,
+                     mix_id: torch.Tensor):
+    """(-log p [C], d(-log p)/dx [C, D]) of each row x[c] under stacked
+    mixture mix_id[c], both from one launch of kernel B5 (what
+    `gmm.neg_log_prob_and_grad` returns on the gathered mixtures)."""
+    if x.device.type == "cpu":
+        return gmm_nll_and_grad_ref(x, weights, means, prec_chol, mix_id)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    logp, grad = _launch_gmm(x, weights, means, prec_chol, mix_id, True)
+    return -logp, grad
+
+
+# ---------------------------------------------------------------------------
+# B6: crowd back-projection
+# ---------------------------------------------------------------------------
+
+def _back_project_args(alphas, eigen, mean, basis, mix_id):
+    """Both signatures of B6 as the stacked one: with mix_id None one
+    eigen [D, K], mean [D] and basis [T, n_basis] shared by the crowd."""
+    if mix_id is None:
+        eigen, mean, basis = eigen[None], mean[None], basis[None]
+        mix_id = torch.zeros(alphas.shape[0], dtype=torch.long,
+                             device=alphas.device)
+    c, k = alphas.shape
+    m, d, _ = eigen.shape
+    n_basis = basis.shape[-1]
+    if eigen.shape[2] != k or mean.shape != (m, d) or basis.dim() != 3 \
+            or basis.shape[0] not in (1, c) or d % n_basis != 0 \
+            or mix_id.shape != (c,):
+        raise ValueError("crowd_back_project expects alphas [C, K], eigen "
+                         "[M, n_basis*n_dim, K], mean [M, n_basis*n_dim], "
+                         "basis [C or 1, T, n_basis] and mix_id [C] (or "
+                         "the unstacked TPU signature)")
+    return eigen, mean, basis, mix_id
+
+
+def crowd_back_project_ref(alphas, eigen, mean, basis, mix_id=None):
+    """Plain PyTorch twin of kernel B6: frames[c] = basis[c] @
+    reshape(eigen[mix_id[c]] @ alphas[c] + mean[mix_id[c]]) (the einsum
+    form of the walk's back-projection) -> [C, T, n_dim]."""
+    eigen, mean, basis, mix_id = _back_project_args(alphas, eigen, mean,
+                                                    basis, mix_id)
+    coeffs = torch.einsum("cdk,ck->cd", eigen[mix_id], alphas) + mean[mix_id]
+    return torch.matmul(basis, coeffs.reshape(alphas.shape[0],
+                                              basis.shape[-1], -1))
+
+
+def crowd_back_project(alphas: torch.Tensor, eigen: torch.Tensor,
+                       mean: torch.Tensor, basis: torch.Tensor,
+                       mix_id=None) -> torch.Tensor:
+    """Back-projected frames of a crowd (kernel B6): alphas [C, K] with one
+    eigen [n_basis*n_dim, K], mean [n_basis*n_dim] and basis [T, n_basis]
+    (the TPU kernel's signature), or with mix_id [C] stacked eigen
+    [M, n_basis*n_dim, K], mean [M, n_basis*n_dim] and per-character bases
+    [C, T, n_basis] (or [1, T, n_basis] shared) -> [C, T, n_dim]."""
+    if alphas.device.type == "cpu":
+        return crowd_back_project_ref(alphas, eigen, mean, basis, mix_id)
+    if alphas.device.type != "cuda":
+        raise ValueError(f"no kernel for device {alphas.device}")
+    eigen, mean, basis, mix_id = _back_project_args(alphas, eigen, mean,
+                                                    basis, mix_id)
+    alphas, eigen, mean, basis = (t.contiguous()
+                                  for t in (alphas, eigen, mean, basis))
+    _check_cuda("crowd_back_project", alphas, eigen, mean, basis)
+    mix_id = mix_id.to(device=alphas.device, dtype=torch.long).contiguous()
+    c, k = alphas.shape
+    m, d, _ = eigen.shape
+    t, n_basis = basis.shape[1:]
+    n_dim = d // n_basis
+    out = torch.empty((c, t, n_dim), dtype=torch.float32,
+                      device=alphas.device)
+    if c == 0:
+        return out
+    lib = cuda_build.load_library()
+    with torch.cuda.device(alphas.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        cuda_build.check(lib.mg_back_project(
+            eigen.data_ptr(), mean.data_ptr(), mix_id.data_ptr(),
+            alphas.data_ptr(), basis.data_ptr(), out.data_ptr(), c, m, k,
+            n_basis, n_dim, t, int(basis.shape[0] == 1), stream),
+            "crowd_back_project launch")
+    _LAUNCHES["crowd_back_project"] += 1
     return out
 
 

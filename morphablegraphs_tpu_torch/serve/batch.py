@@ -137,8 +137,8 @@ class BatchedGenerator:
         segs, n_frames, _, _ = cw.constrained_walk_full_crowd(
             skel, self.stacked, spline_path.stack_paths(paths),
             torch.tensor(start_ids, device=self.device), self.n_steps,
-            draws=cw.torch_sampler(gen, self.stacked, len(mg_inputs),
-                                   self.n_samples),
+            draws=walk_mod.torch_sampler(gen, self.stacked, len(mg_inputs),
+                                         self.n_samples),
             step_scs=step_scs, cfg=self.walk_config())
         segs = segs.cpu().numpy()
         n_frames = n_frames.cpu().numpy()

@@ -1,7 +1,7 @@
-"""Constrained crowd walk with full constraint semantics (port of
-morphablegraphs_tpu.synthesis.constrained_walk.constrained_walk_full with the
-fused selection kernels: pallas_selection=True, and pallas_ee for one
-end-effector keyframe).
+"""Constrained crowd walks (port of morphablegraphs_tpu.synthesis.
+constrained_walk): `constrained_walk_full` with the fused selection kernels
+(pallas_selection=True, and pallas_ee for one end-effector keyframe), and
+the lightweight boundary-row `constrained_walk`.
 
 The crowd is an explicit leading [C] axis and the JAX scan a Python loop
 over `full_walk_step`.  Per step and character:
@@ -14,13 +14,14 @@ over `full_walk_step`.  Per step and character:
      kept only if the exact error improves: the exact LM by default, or the
      frozen-correspondence LM (closed form or linearize form).  The normal
      equations of the whole crowd go through kernel B2, or the whole step
-     block through kernel B4.  The JAX lax.cond gate is a masked select
-     per character, as under vmap;
-  4. the winner is back-projected with time warping, aligned and
-     seam-smoothed, the travelled arc advances, and the next node is
+     block through kernel B4; the closed frozen form takes its GMM
+     naturalness term and gradient from kernel B5.  The JAX lax.cond gate
+     is a masked select per character, as under vmap;
+  4. the winner is back-projected with time warping (kernel B6), aligned
+     and seam-smoothed, the travelled arc advances, and the next node is
      drawn.
-Random draws come in through `StepDraws`, so a caller can replay another
-generator's noise.
+Random draws come in through `walk.StepDraws`, so a caller can replay
+another generator's noise.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ from ..constraints import compiled
 from ..models.graph import (NODE_TYPE_END, NODE_TYPE_IDS, NODE_TYPE_STANDARD,
                             StackedGraph, TRANSITION_TYPE_IDS)
 from ..models.skeleton import Skeleton
-from ..ops import align, gmm as gmm_ops, kernels, lm, spline_path
+from ..ops import align, gmm as gmm_ops, kernels, lm, quat, spline_path
 from . import walk as walk_mod
 
 
@@ -48,17 +49,6 @@ class WalkState:
     prev_last: torch.Tensor  # last aligned frame so far
     travelled: torch.Tensor  # arc length on the path
     done: torch.Tensor  # bool
-
-
-@dataclasses.dataclass
-class StepDraws:
-    """One step's noise: Gumbel [C, n, K_comp] for the candidates'
-    components, standard normals [C, n, L] for the candidates, Gumbel
-    [C, N_nodes] for the transition."""
-
-    comp_gumbel: torch.Tensor
-    normal: torch.Tensor
-    trans_gumbel: torch.Tensor
 
 
 @dataclasses.dataclass
@@ -101,30 +91,6 @@ STEP_LENGTH_FACTOR = 1.0
 END_THRESHOLD = 20.0
 POS_WEIGHT, DIR_WEIGHT, TRAJ_WEIGHT = 1.0, 0.8, 1.0
 ROOT_NODE = 0
-
-
-def torch_sampler(generator: torch.Generator, g: StackedGraph, n_chars: int,
-                  n_samples: int) -> Callable[[int], StepDraws]:
-    """The port's own noise source: step index -> StepDraws drawn from
-    `generator` (on the generator's device)."""
-    dev = generator.device
-    k_comp = g.gmm_weights.shape[-1]
-    l_dim = g.gmm_means.shape[-1]
-
-    def gumbel(shape):
-        tiny = torch.finfo(torch.float32).tiny
-        u = torch.rand(shape, generator=generator, device=dev)
-        return -torch.log(-torch.log(torch.clamp(u, min=tiny)))
-
-    def draw(step: int) -> StepDraws:
-        del step
-        return StepDraws(
-            comp_gumbel=gumbel((n_chars, n_samples, k_comp)),
-            normal=torch.randn((n_chars, n_samples, l_dim),
-                               generator=generator, device=dev),
-            trans_gumbel=gumbel((n_chars, g.n_nodes)))
-
-    return draw
 
 
 def stack_steps(base: compiled.StepConstraints, n_steps: int):
@@ -294,13 +260,9 @@ def _refine(skeleton, g, node_id, sc, s0, e0, cfg: WalkConfig,
     `refine`): the exact LM, or with cfg.lm_frozen the frozen model in its
     closed or linearize form.  Returns (s, err) where the exact error
     improved, else (s0, e0)."""
-    gmm = _node_gmm(g, node_id)
     act = _lm_mask(sc)
     es, qs = ERROR_SCALE, QUALITY_SCALE
     lm_kw = dict(fused_step=cfg.lm_fused_step)
-
-    def nll(x):
-        return -gmm_ops.log_prob(gmm, x)
 
     if not cfg.lm_frozen:
         s_opt, _ = lm.lm_minimize(
@@ -317,16 +279,20 @@ def _refine(skeleton, g, node_id, sc, s0, e0, cfg: WalkConfig,
                 *args, ee_node=ee_idx)
             n_lat = s0.shape[1]
 
+            def nll_and_grad(x):  # kernel B5 on a CUDA device
+                return kernels.gmm_nll_and_grad(
+                    x, g.gmm_weights, g.gmm_means, g.gmm_prec_chol, node_id)
+
             def make_vj(sv):
                 r_raw, j_raw, vfn = raw_make(sv)
-                nll_s, g_nll = gmm_ops.neg_log_prob_and_grad(gmm, sv)
+                nll_s, g_nll = nll_and_grad(sv)
                 j_pad = torch.nn.functional.pad(
                     j_raw, (0, n_lat - j_raw.shape[2]))
                 r = act * (es * r_raw + qs * nll_s[:, None])
                 j = act[:, :, None] * (es * j_pad + qs * g_nll[:, None, :])
 
                 def value(x):
-                    nll_x, _ = gmm_ops.neg_log_prob_and_grad(gmm, x)
+                    nll_x, _ = nll_and_grad(x)
                     return act * (es * vfn(x) + qs * nll_x[:, None])
 
                 return r, j, value
@@ -336,10 +302,13 @@ def _refine(skeleton, g, node_id, sc, s0, e0, cfg: WalkConfig,
         else:
             raw_make = compiled.make_frozen_root_residuals(
                 *args, ee_node=ee_idx)
+            # under torch.func.jvp: the plain log_prob, not kernel B5
+            gmm = _node_gmm(g, node_id)
 
             def make_fn(sv):
                 rf = raw_make(sv)
-                return lambda x: act * (es * rf(x) + qs * nll(x)[:, None])
+                return lambda x: act * (
+                    es * rf(x) - qs * gmm_ops.log_prob(gmm, x)[:, None])
 
             s_opt, _ = lm.lm_minimize(None, s0, cfg.lm_iters,
                                       make_residual_fn=make_fn, **lm_kw)
@@ -352,7 +321,7 @@ def _refine(skeleton, g, node_id, sc, s0, e0, cfg: WalkConfig,
 def full_walk_step(skeleton: Skeleton, g: StackedGraph,
                    path: spline_path.PathSpline, path_table: torch.Tensor,
                    state: WalkState, step_idx: int,
-                   sc0: compiled.StepConstraints, draws: StepDraws,
+                   sc0: compiled.StepConstraints, draws: walk_mod.StepDraws,
                    cfg: WalkConfig, root_only: bool, ee_chain=None):
     """One step of the crowd walk -> (new WalkState, StepOutput).
 
@@ -366,16 +335,12 @@ def full_walk_step(skeleton: Skeleton, g: StackedGraph,
     node = state.node_id
     has_prev = 1.0 if step_idx > 0 else 0.0
     n_can_f = g.n_canonical[node].float()
-    full_arc = path.full_arc_length
     root_off = torch.as_tensor(skeleton.offsets[0], device=dev)
 
     # each stage runs under a profiler range (walk.*) that a
     # torch.profiler trace reads; outside a trace a range costs ~1 us
     with record_function("walk.goal"):
-        step_len = g.avg_step_length[node] * STEP_LENGTH_FACTOR
-        near_end = state.travelled + step_len >= full_arc - END_THRESHOLD
-        goal_arc = torch.where(near_end, full_arc,
-                               state.travelled + step_len)
+        goal_arc = _goal_arc(g, state, path.full_arc_length)
         sc = sc0.replace(
             traj=path, traj_active=torch.ones(c, device=dev),
             traj_node=torch.full((c,), ROOT_NODE, device=dev),
@@ -407,10 +372,34 @@ def full_walk_step(skeleton: Skeleton, g: StackedGraph,
             s = torch.where(gate[:, None], s_ref, s)
             err = torch.where(gate, err_ref, err)
 
-    # ---- back-project, align, smooth
+    return _emit_step(g, path, state, s, err, step_idx > 0,
+                      cfg.max_step_frames, draws.trans_gumbel)
+
+
+def _goal_arc(g: StackedGraph, state: WalkState,
+              full_arc: torch.Tensor) -> torch.Tensor:
+    """The step's goal on the path: one average step of the node past the
+    travelled arc, or the path's end once that is within END_THRESHOLD."""
+    step_len = g.avg_step_length[state.node_id] * STEP_LENGTH_FACTOR
+    near_end = state.travelled + step_len >= full_arc - END_THRESHOLD
+    return torch.where(near_end, full_arc, state.travelled + step_len)
+
+
+def _emit_step(g: StackedGraph, path: spline_path.PathSpline,
+               state: WalkState, s: torch.Tensor, err: torch.Tensor,
+               has_prev: bool, max_step_frames: int,
+               trans_gumbel: torch.Tensor):
+    """The constrained walks' shared step end: back-project the chosen
+    latents s [C, L] with time warping (kernel B6), align and seam-smooth
+    them against the previous step, advance the travelled arc, draw the
+    next node -> (new WalkState, StepOutput)."""
+    dev = state.travelled.device
+    c = state.node_id.shape[0]
+    node = state.node_id
+    full_arc = path.full_arc_length
     with record_function("walk.back_project"):
         frames, n_frames = walk_mod.back_project_node(g, node, s,
-                                                      cfg.max_step_frames)
+                                                      max_step_frames)
         if has_prev:
             q_y, delta = align.node_aligning_2d_transform(state.prev_last,
                                                           frames[:, 0])
@@ -424,7 +413,6 @@ def full_walk_step(skeleton: Skeleton, g: StackedGraph,
         last_idx = torch.clamp(n_frames - 1, min=0).long()
         new_last = aligned[torch.arange(c, device=dev), last_idx]
 
-    # ---- travelled arc and transition
     with record_function("walk.advance"):
         _, new_arc, _ = spline_path.closest_point(path, new_last[:, :3],
                                                   state.travelled)
@@ -432,7 +420,7 @@ def full_walk_step(skeleton: Skeleton, g: StackedGraph,
         type_id = torch.where(want_end, TRANSITION_TYPE_IDS[NODE_TYPE_END],
                               TRANSITION_TYPE_IDS[NODE_TYPE_STANDARD])
         next_id, found = walk_mod.choose_transition(g, node, type_id,
-                                                    draws.trans_gumbel)
+                                                    trans_gumbel)
         done = state.done | ~found | (
             want_end & (g.node_type[node] == NODE_TYPE_IDS[NODE_TYPE_END]))
     out = StepOutput(
@@ -455,12 +443,12 @@ def initial_state(g: StackedGraph, start_ids: torch.Tensor) -> WalkState:
 def constrained_walk_full_crowd(skeleton: Skeleton, g: StackedGraph,
                                 paths: spline_path.PathSpline,
                                 start_ids: torch.Tensor, n_steps: int,
-                                draws: Callable[[int], StepDraws],
+                                draws: Callable[[int], walk_mod.StepDraws],
                                 step_scs=None,
                                 cfg: Optional[WalkConfig] = None):
     """A crowd of constrained walks, one per path ([C] leading axis).
 
-    draws(step) supplies each step's noise (`torch_sampler` for the port's
+    draws(step) supplies each step's noise (`walk.torch_sampler` for the port's
     own generator); step_scs: host-side per-step constraint sets with a
     leading [n_steps] axis (numpy leaves).  root_only is derived here from
     step_scs, as every JAX caller does.  Returns (segments [C, S, T, D],
@@ -492,3 +480,101 @@ def constrained_walk_full_crowd(skeleton: Skeleton, g: StackedGraph,
             torch.stack([o.n_frames for o in outs], dim=1),
             torch.stack([o.node_id for o in outs], dim=1),
             torch.stack([o.error for o in outs], dim=1))
+
+
+# ---------------------------------------------------------------------------
+# The boundary-row walk (the JAX package's lightweight `constrained_walk`)
+# ---------------------------------------------------------------------------
+
+def _boundary_rows(g: StackedGraph, node_id: torch.Tensor):
+    """fPCA rows of each node's first and last coefficient blocks, which
+    for a clamped B-spline ARE the clip's first and last frames:
+    (e2 [C, 2*n_dim, k_s], mu2 [C, 2*n_dim]) with rows [first; last].  The
+    last block is the node's own (n_basis - 1), not a zero padded one."""
+    c = node_id.shape[0]
+    rows = torch.arange(c, device=node_id.device)
+    eigen = g.eigen_s[node_id].reshape(c, g.n_basis_max, g.n_dim, -1)
+    mean = g.mean_s[node_id].reshape(c, g.n_basis_max, g.n_dim)
+    last = (g.node_n_basis[node_id] - 1).long()
+    return (torch.cat([eigen[:, 0], eigen[rows, last]], dim=1),
+            torch.cat([mean[:, 0], mean[rows, last]], dim=1))
+
+
+def _score_candidates(g: StackedGraph, node_id: torch.Tensor,
+                      samples: torch.Tensor, prev_last: torch.Tensor,
+                      goal_pos: torch.Tensor, goal_dir: torch.Tensor,
+                      has_prev: bool, dir_weight: float = DIR_WEIGHT):
+    """End-position (XZ) plus weighted end-heading error (degrees) of each
+    candidate's last frame after its own 2D alignment to the previous step:
+    samples [C, N, L], prev_last [C, D], goal_pos [C, 3], goal_dir [C, 2]
+    -> errors [C, N]."""
+    d = g.n_dim
+    e2, mu2 = _boundary_rows(g, node_id)
+    rows = torch.einsum("cnk,cdk->cnd", samples[:, :, : g.k_s_max], e2) \
+        + mu2[:, None]
+    first, last = rows[..., :d], rows[..., d:]
+    if has_prev:
+        q_y, delta = align.node_aligning_2d_transform(
+            prev_last[:, None].expand_as(first), first)
+        last = align.transform_frames(last[:, :, None], q_y, delta)[:, :, 0]
+    pos_err = torch.sqrt((last[..., 0] - goal_pos[:, None, 0]) ** 2
+                         + (last[..., 2] - goal_pos[:, None, 2]) ** 2 + 1e-12)
+    fwd = torch.tensor([0.0, 0.0, 1.0], device=samples.device)
+    heading = quat.rotate_vec(quat.normalize(last[..., 3:7]), fwd)
+    hd = torch.stack([heading[..., 0], heading[..., 2]], dim=-1)
+    hd = hd / torch.clamp(torch.linalg.vector_norm(hd, dim=-1, keepdim=True),
+                          min=1e-10)
+    cos_a = torch.clamp(torch.sum(hd * goal_dir[:, None], dim=-1), -1.0, 1.0)
+    return pos_err + dir_weight * torch.rad2deg(torch.arccos(cos_a))
+
+
+def constrained_walk(g: StackedGraph, paths: spline_path.PathSpline,
+                     start_ids: torch.Tensor, n_steps: int,
+                     draws: Callable[[int], walk_mod.StepDraws],
+                     max_step_frames: int = 128):
+    """Crowd walks that follow their paths with the boundary-row selection
+    (the JAX package's `constrained_walk`, bench.py's toy config): per step
+    the goal one average step along the path, the best of the step's GMM
+    candidates on end position and heading from two coefficient rows, the
+    winner back-projected, aligned and smoothed, the arc advanced.
+
+    paths [C] leading axis; draws(step) supplies StepDraws, one candidate
+    per draw (the JAX walk's n_samples, default 64).  Returns (segments
+    [C, S, T, D], n_frames [C, S], node_ids [C, S], errors [C, S], the
+    winners' selection errors)."""
+    dev = start_ids.device
+    c = start_ids.shape[0]
+    rows = torch.arange(c, device=dev)
+    state = initial_state(g, start_ids)
+    outs = []
+    for t in range(n_steps):
+        d = draws(t)
+        with record_function("walk.goal"):
+            goal_pos, goal_dir = spline_path.point_and_dir_at_arc_length(
+                paths, _goal_arc(g, state, paths.full_arc_length))
+        with record_function("walk.sample"):
+            samples = walk_mod.sample_node_latents(g, state.node_id,
+                                                   d.comp_gumbel, d.normal)
+        with record_function("walk.select"):
+            errors = _score_candidates(g, state.node_id, samples,
+                                       state.prev_last, goal_pos, goal_dir,
+                                       t > 0)
+            best = torch.argmin(errors, dim=1)
+        state, out = _emit_step(g, paths, state, samples[rows, best],
+                                errors[rows, best], t > 0, max_step_frames,
+                                d.trans_gumbel)
+        outs.append(out)
+    return (torch.stack([o.frames for o in outs], dim=1),
+            torch.stack([o.n_frames for o in outs], dim=1),
+            torch.stack([o.node_id for o in outs], dim=1),
+            torch.stack([o.error for o in outs], dim=1))
+
+
+def constrained_walk_crowd(g: StackedGraph, paths: spline_path.PathSpline,
+                           start_id, n_chars: int, n_steps: int,
+                           draws: Callable[[int], walk_mod.StepDraws], **kw):
+    """n_chars boundary-row walks from one start node, each on its own path
+    (paths with a leading [n_chars] axis); keywords as `constrained_walk`."""
+    start = torch.full((n_chars,), int(start_id), dtype=torch.long,
+                       device=paths.table_arc.device)
+    return constrained_walk(g, paths, start, n_steps, draws, **kw)

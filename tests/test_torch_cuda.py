@@ -15,6 +15,7 @@ from morphablegraphs_tpu_torch.models import graph as graph_mod  # noqa: E402
 from morphablegraphs_tpu_torch.models import skeleton as sk  # noqa: E402
 from morphablegraphs_tpu_torch.ops import kernels, spline_path  # noqa: E402
 from morphablegraphs_tpu_torch.synthesis import constrained_walk as cw  # noqa: E402
+from morphablegraphs_tpu_torch.synthesis import walk  # noqa: E402
 from morphablegraphs_tpu_torch.utils import synthetic  # noqa: E402
 
 
@@ -69,7 +70,7 @@ def test_walk_gpu_matches_cpu(cuda):
     rng = np.random.default_rng(1)
     paths = [_path(rng, 256, "cpu") for _ in range(4)]
     gen = torch.Generator().manual_seed(2)
-    draws = [cw.torch_sampler(gen, st, 4, 128)(t) for t in range(3)]
+    draws = [walk.torch_sampler(gen, st, 4, 128)(t) for t in range(3)]
     cfg = cw.WalkConfig(max_step_frames=160, lm_iters=0)
     start = st.node_id(("walk", "beginLeftStance"))
     outs = {}
@@ -78,7 +79,7 @@ def test_walk_gpu_matches_cpu(cuda):
             skel, st.to(dev), spline_path.stack_paths([p.to(dev)
                                                        for p in paths]),
             torch.full((4,), start, device=dev), 3,
-            draws=lambda t, dev=dev: cw.StepDraws(
+            draws=lambda t, dev=dev: walk.StepDraws(
                 draws[t].comp_gumbel.to(dev), draws[t].normal.to(dev),
                 draws[t].trans_gumbel.to(dev)),
             cfg=cfg)
@@ -93,7 +94,6 @@ def _ee_inputs(device, n_chars=256, seed=4):
     candidates from each node's GMM, random paths and previous frames, and
     a RightHand keyframe at (20, 110, 80) on canonical frame 129."""
     from morphablegraphs_tpu_torch.ops import align
-    from morphablegraphs_tpu_torch.synthesis import walk
     graph = graph_mod.build_graph_from_dict(
         synthetic.make_reference_scale_graph_dict())
     skel, _ = sk.load_bvh(synthetic.REF_BVH)
@@ -184,3 +184,62 @@ def test_lm_delta_kernel_matches_twin(cuda):
     torch.testing.assert_close(d, kernels.lm_delta_ref(j, r, lam, rad),
                                rtol=2e-3, atol=2e-4)
     assert bool((d[:3] == 0).all())
+
+
+def _ref_stacked(device):
+    graph = graph_mod.build_graph_from_dict(
+        synthetic.make_reference_scale_graph_dict())
+    return graph_mod.stack_graph(graph, device=device)
+
+
+@pytest.mark.cuda
+def test_back_project_kernel_matches_twin(cuda):
+    """B6 against its twin at the walk's shapes on the reference-scale model
+    (256 characters over all nodes, T = 160, time-warped bases from GMM
+    draws) and at the TPU signature (one shared operand set): within
+    1e-3 + 1e-5 |x| (fp32 sums of 25 and 16 products of ~100-cm values in
+    other orders); the launch is counted."""
+    st = _ref_stacked(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    node = torch.arange(256, device=cuda) % st.n_nodes
+    draws = walk.torch_sampler(gen, st, 256, 1)(0)
+    s = walk.sample_node_latent(st, node, draws.comp_gumbel[:, 0],
+                                draws.normal[:, 0])
+    basis, _ = walk.warped_basis(st, node, s[:, st.k_s_max:], 160)
+    alpha = s[:, : st.k_s_max].contiguous()
+    cases = [(alpha, st.eigen_s, st.mean_s, basis, node),
+             (alpha, st.eigen_s[1], st.mean_s[1], basis[0], None)]
+    for a, e, m, b, mix in cases:
+        before = kernels.launch_counts()["crowd_back_project"]
+        out = kernels.crowd_back_project(a, e, m, b, mix_id=mix)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["crowd_back_project"] == before + 1
+        ref = kernels.crowd_back_project_ref(a, e, m, b, mix_id=mix)
+        assert out.shape == (256, 160, st.n_dim)
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_gmm_kernel_matches_twin(cuda):
+    """B5 against its twins on the reference-scale model's node mixtures
+    (512 rows over all nodes, K = 5, D = 28, draws scaled 1.5x past the
+    mixtures): log p and -log p within 1e-3 + 1e-4 |x| (the JAX package's
+    Pallas-vs-XLA bound), the gradient within 1e-3 + 1e-4 |g|; each call
+    counts one launch."""
+    st = _ref_stacked(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    node = torch.arange(512, device=cuda) % st.n_nodes
+    draws = walk.torch_sampler(gen, st, 512, 1)(0)
+    x = walk.sample_node_latent(st, node, draws.comp_gumbel[:, 0],
+                                1.5 * draws.normal[:, 0])
+    args = (x, st.gmm_weights, st.gmm_means, st.gmm_prec_chol)
+    before = kernels.launch_counts()["gmm_scores"]
+    lp = kernels.gmm_scores(*args, mix_id=node)
+    nll, grad = kernels.gmm_nll_and_grad(*args, node)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["gmm_scores"] == before + 2
+    torch.testing.assert_close(lp, kernels.gmm_scores_ref(*args, mix_id=node),
+                               rtol=1e-4, atol=1e-3)
+    nll_t, grad_t = kernels.gmm_nll_and_grad_ref(*args, node)
+    torch.testing.assert_close(nll, nll_t, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(grad, grad_t, rtol=1e-4, atol=1e-3)

@@ -52,7 +52,8 @@ def test_port_sources_name_no_jax():
 def test_kernel_sources_present_and_unbuilt_at_import():
     from morphablegraphs_tpu_torch.ops import cuda_build
     names = sorted(p.name for p in cuda_build._sources())
-    assert names == ["chol_solve.cu", "lm_delta.cu", "score_loco.cu"]
+    assert names == ["back_project.cu", "chol_solve.cu", "gmm_scores.cu",
+                     "lm_delta.cu", "score_loco.cu"]
     assert len(cuda_build.source_hash()) == 16
     for src in cuda_build._sources():
         text = src.read_text()

@@ -18,7 +18,7 @@ from morphablegraphs_tpu_torch.constraints import compiled as ct
 from morphablegraphs_tpu_torch.models import graph as gt
 from morphablegraphs_tpu_torch.models import skeleton as skt
 from morphablegraphs_tpu_torch.ops import spline_path as spt
-from morphablegraphs_tpu_torch.synthesis import constrained_walk as cwt
+from morphablegraphs_tpu_torch.synthesis import walk as wt
 
 
 def to_numpy(tree):
@@ -170,10 +170,37 @@ def jax_walk_draws(key, n_chars, n_steps, n_samples, k_comp, l_dim,
 
 def port_draws(draws_j):
     """[C, S, ...] JAX draws -> step index -> port StepDraws."""
-    gc, nz, gt_ = (torch.as_tensor(np.asarray(a)) for a in draws_j)
+    gc, nz, gt_ = (torch.as_tensor(np.array(a)) for a in draws_j)
 
     def at(t):
-        return cwt.StepDraws(comp_gumbel=gc[:, t].contiguous(),
+        return wt.StepDraws(comp_gumbel=gc[:, t].contiguous(),
                              normal=nz[:, t].contiguous(),
                              trans_gumbel=gt_[:, t].contiguous())
     return at
+
+
+@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4))
+def jax_random_walk_draws(keys, n_steps, k_comp, l_dim, n_nodes):
+    """The noise the JAX random walks draw from per-character keys [C]
+    (random_walk_crowd: split(key, n_chars); random_walk: key[None]): per
+    step split(state key, 3) -> (k_sample, k_trans, k_next),
+    sample_node_latent's split(k_sample) -> (k_comp, k_norm), one
+    categorical draw of a component and of a transition.  Returns
+    [C, S, ...] arrays."""
+    def per_char(kc):
+        def body(k_state, _):
+            k_s, k_t, k_n = jax.random.split(k_state, 3)
+            k_c, k_nm = jax.random.split(k_s)
+            return k_n, (
+                jax.random.gumbel(k_c, (k_comp,), jnp.float32),
+                jax.random.normal(k_nm, (l_dim,), jnp.float32),
+                jax.random.gumbel(k_t, (n_nodes,), jnp.float32))
+        return jax.lax.scan(body, kc, None, length=n_steps)[1]
+    return jax.vmap(per_char)(keys)
+
+
+def port_random_draws(draws_j):
+    """[C, S, ...] JAX random-walk draws -> step index -> port StepDraws
+    with one draw per character ([C, 1, K], [C, 1, L], [C, N])."""
+    gc, nz, gt_ = (np.array(a) for a in draws_j)
+    return port_draws((gc[:, :, None], nz[:, :, None], gt_))
