@@ -5,13 +5,21 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases, one line each (or a few):
   1. the CUDA device, and the card's name and power limit from nvidia-smi;
-  2. the kernel build (one nvcc per source, sm_90a) and its seconds;
+  2. the kernel build (one nvcc per source, sm_90a) and its seconds, and
+     the registers and local memory (spills) cuobjdump reads from the
+     library for each instance of the selection kernels B1/B3;
   3. kernel B1 (locomotion candidate scoring) against its plain PyTorch twin
      at the crowd shapes (1024 characters x 128 candidates, arc tables of
-     264 and 1008 rows), with CUDA-event times of both;
-  4. kernel B2 (crowd Cholesky solve) against its twin at [1024, 28, 28];
+     264 and 1008 rows) and at the serving batch's (8 x 128, 1008 rows),
+     with CUDA-event times of both, the kernel's bound and its share of it;
+     then B1's time at every lanes-per-candidate layout at those shapes and
+     at batches of 16 to 256 characters (1008 rows), beside the layout the
+     wrapper picks;
+  4. kernel B2 (crowd Cholesky solve) against its twin at [1024, 28, 28],
+     beside torch.linalg.solve_ex on the same systems;
   5. kernel B3 (B1 plus a RightHand end-effector keyframe) against its twin
-     at the same shapes, and on a chain with a fixed, rest-rotated joint;
+     at the same three shapes, and on a chain with a fixed, rest-rotated
+     joint;
   6. kernel B4 (the fused LM step) against its twin at [1024, 49, 28];
   7. kernel B5 (the GMM log-likelihood and its gradient) against its twins
      at [1024 rows over all nodes, K 5, D 28];
@@ -37,14 +45,19 @@ Phases, one line each (or a few):
      form, with the random walk's largest root seam jump beside the numpy
      reference concatenation's (tests/reference_oracle.py);
  12. one more root-only, ee and config-5 crowd run under torch.profiler:
-     device busy and idle share, time per walk stage, the top kernels.
-Then a JSON line of per-kernel results, and as the last line
-{"ok": true, "device": {...}}.  Any failed check exits nonzero; without a
-CUDA device the script fails before it prints any result.
+     device busy and idle share, time per walk stage, the top kernels and
+     each of the port's kernels (launched through ctypes, so no walk stage's
+     device time counts them).
+Then a JSON line of per-kernel results (time, launches, error against the
+twin, the bound and the one-call library time where there is one), and as
+the last line {"ok": true, "device": {...}}.  Any failed check exits
+nonzero; without a CUDA device the script fails before it prints any
+result.
 """
 
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -70,6 +83,11 @@ B5_RTOL, B5_ATOL = 1e-4, 1e-3
 # hundred cm, taken in other orders by kernel and twin
 B6_RTOL, B6_ATOL = 1e-5, 1e-3
 WALK_FRAMES_ATOL = 1e-2  # GPU vs CPU walk frames, the whole-walk bound
+# the H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): HBM bytes
+# and fp32 operations outside the tensor cores, for each kernel's bound
+PEAK_BYTES_PER_S, PEAK_FP32_PER_S = 3.35e12, 67e12
+# a table row of a search: a mul and 2 FMAs (5), 2 adds, a compare, a min
+SELECTION_FLOPS_PER_ROW = 9
 KERNEL_CHARS = 1024  # characters of the kernel-vs-twin checks
 CROWD_CHARS, CROWD_STEPS = 1024, 8  # the benchmark crowds (bench.py)
 RANDOM_FRAMES = 160  # BASELINE config 5's frames a step (run_all.py)
@@ -209,67 +227,159 @@ def _check_scores(name, out_k, out_t):
     return float(err.max()), summary
 
 
-def phase_b1(stacked, skel, device):
+def _bound(nbytes: float, flops: float):
+    """The least time the card could take: the larger of the bytes over
+    the HBM rate and the fp32 operations over their peak -> (ms, what
+    bounds it)."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _selection_bound(mop, alphas, table, cfg, chain=None):
+    """B1's (or with chain B3's) bound on these inputs: each input read and
+    the errors written once; 9 operations for each table row the searches
+    must read (valid, at or above the floor, from the twin's masks), 2 per
+    coefficient of each frame row the body evaluates (60, and with a chain
+    its 3 + 4L ee rows), and ~60 per chain joint -> (ms, what bounds it,
+    the share of the table rows the searches read)."""
+    c, n, k = alphas.shape
+    rows = _rows_read(mop, alphas, table, cfg)
+    frame_rows, per_joint, extra = 60, 0, (table,)
+    if chain is not None:
+        frame_rows += 3 + 4 * chain.shape[0]
+        per_joint, extra = 60 * chain.shape[0], (table, chain)
+    flops = SELECTION_FLOPS_PER_ROW * rows + c * n * (
+        2 * (k + 1) * frame_rows + per_joint)
+    ms, by = _bound(_nbytes(mop, alphas, cfg, *extra) + 4 * c * n, flops)
+    return ms, by, rows / (c * n * 16 * table.shape[1])
+
+
+def _rows_read(mop, alphas, table, cfg) -> int:
+    """Table rows the 16 searches of every candidate must read on these
+    inputs: the valid rows at or above each search's floor, counted from
+    the masks of B1's twin."""
     from morphablegraphs_tpu_torch.ops import kernels
-    worst, results = 0.0, {}
-    for g8_gran in (256, 1000):
-        args = _b1_inputs(stacked, skel, KERNEL_CHARS, g8_gran, device,
-                          seed=g8_gran)
-        err, summary = _check_scores(
-            "B1", kernels.score_locomotion_candidates(*args),
-            kernels.score_locomotion_candidates_ref(*args))
-        ms = _time_ms(lambda: kernels.score_locomotion_candidates(*args), 20)
-        plain_ms = _time_ms(
-            lambda: kernels.score_locomotion_candidates_ref(*args), 3)
-        g8 = args[2].shape[1]
-        print(f"B1 score_locomotion_candidates C={KERNEL_CHARS} N=128 K=25 "
-              f"G8={g8}: {summary} kernel_ms={ms:.4f} twin_ms={plain_ms:.4f}",
-              flush=True)
-        worst = max(worst, err)
-        results[g8] = (ms, plain_ms)
-    return worst, results
+    rows, search = [], kernels._table_search
+
+    def counting(*args):
+        out = search(*args)
+        rows.append(int((out[2] > 0).sum()))
+        return out
+    kernels._table_search = counting
+    try:
+        kernels.score_locomotion_candidates_ref(mop, alphas, table, cfg)
+    finally:
+        kernels._table_search = search
+    return sum(rows)
 
 
-def phase_b3(stacked, skel, device):
-    """B3 against its twin on the RightHand chain (L = 6) with tables of
-    264 and 1008 rows, then on the same inputs with a synthetic chain whose
-    third joint is fixed with a 90-degree rest rotation (the kernel must
-    take the rest quaternion and ignore that joint's operator rows)."""
+# the shapes of phases 3 and 5: (label, characters, path granularity)
+SELECTION_SHAPES = (("crowd", KERNEL_CHARS, 256),
+                    ("crowd", KERNEL_CHARS, 1000), ("serving", 8, 1000))
+# batches between the two, for the lanes sweep only (1008-row tables)
+LANES_BATCHES = (16, 32, 64, 128, 256)
+LANES = (1, 2, 4, 8, 16, 32)
+
+
+def _lanes_sweep(label, args, n_sm):
+    """B1 at every lanes-per-candidate layout on these inputs: equal bits
+    at each, and times in turns (up and down the widths twice, median)."""
     import torch
     from morphablegraphs_tpu_torch.ops import kernels
+    c, n, _ = args[1].shape
+    ref = kernels._launch_selection(*args, None, 1)
+    times = {w: [] for w in LANES}
+    for order in (LANES, LANES[::-1], LANES, LANES[::-1]):
+        for w in order:
+            if not torch.equal(kernels._launch_selection(*args, None, w),
+                               ref):
+                _fail(f"B1 with {w} lanes a candidate differs from 1 lane")
+            times[w].append(_time_ms(
+                lambda w=w: kernels._launch_selection(*args, None, w), 20))
+    med = {w: sorted(t)[len(t) // 2] for w, t in times.items()}
+    pick = kernels.selection_lanes(c, n, n_sm)
+    print(f"B1 {label} C={c} G8={args[2].shape[1]} kernel_ms by lanes per "
+          "candidate: " + ", ".join(f"{w}: {t:.4f}" for w, t in med.items())
+          + f" (picked {pick}: {med[pick]:.4f}; fastest "
+          f"{min(med, key=med.get)})", flush=True)
+
+
+def phase_selection(stacked, skel, device, ee: bool):
+    """B1 (or with ee B3, on the RightHand chain, L = 6) against its twin
+    at SELECTION_SHAPES, with its time, the twin's, its bound and its share
+    of it; B1 also at every lanes-per-candidate layout there and at
+    LANES_BATCHES.  B3 is checked too
+    on a synthetic chain whose third joint is fixed with a 90-degree rest
+    rotation (the kernel must take the rest quaternion and ignore that
+    joint's operator rows).  -> (worst error, {(C, G8): (ms, twin ms,
+    bound ms, what bounds it)})."""
+    import torch
+    from morphablegraphs_tpu_torch.ops import kernels
+    tag = "B3" if ee else "B1"
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     worst, results = 0.0, {}
-    for g8_gran in (256, 1000):
-        mop, alphas, table, cfg, chain = _b1_inputs(
-            stacked, skel, KERNEL_CHARS, g8_gran, device, seed=g8_gran + 1,
-            ee=True)
-        fixed = chain.clone()
-        half = np.deg2rad(90.0) / 2
-        fixed[2, 3:7] = torch.tensor([np.cos(half), 0.0, 0.0, np.sin(half)])
-        fixed[2, 7] = 0.0
+    for label, n_chars, gran in SELECTION_SHAPES:
+        # the crowd shapes keep the seeds of earlier versions of this script
+        seed = gran + int(ee) + (10 if label == "serving" else 0)
+        inputs = _b1_inputs(stacked, skel, n_chars, gran, device, seed,
+                            ee=ee)
+        args = inputs[:4]
+        mop, alphas, table, _ = args
         g8 = table.shape[1]
-        for label, ch in (("RightHand", chain), ("fixed-joint", fixed)):
-            args = (mop, alphas, table, cfg)
+        cases = [(None, None)]
+        if ee:
+            fixed = inputs[4].clone()
+            half = np.deg2rad(90.0) / 2
+            fixed[2, 3:7] = torch.tensor([np.cos(half), 0.0, 0.0,
+                                          np.sin(half)])
+            fixed[2, 7] = 0.0
+            cases = [("RightHand", inputs[4]), ("fixed-joint", fixed)]
+        for chain_name, ch in cases:
+            out_k = kernels.score_locomotion_candidates(*args, chain=ch)
             err, summary = _check_scores(
-                f"B3 ({label})",
-                kernels.score_locomotion_candidates(*args, chain=ch),
+                f"{tag} ({chain_name})" if ee else tag, out_k,
                 kernels.score_locomotion_candidates_ref(*args, chain=ch))
             worst = max(worst, err)
-            if label != "RightHand":
-                print(f"B3 chain={label} G8={g8}: {summary}", flush=True)
+            if chain_name == "fixed-joint":
+                print(f"{tag} chain={chain_name} C={n_chars} G8={g8}: "
+                      f"{summary}", flush=True)
                 continue
             ms = _time_ms(lambda: kernels.score_locomotion_candidates(
                 *args, chain=ch), 20)
-            plain_ms = _time_ms(lambda: kernels.score_locomotion_candidates_ref(
-                *args, chain=ch), 3)
-            print(f"B3 score_locomotion_candidates(chain) C={KERNEL_CHARS} "
-                  f"N=128 K=25 L={ch.shape[0]} rows={mop.shape[1]} G8={g8}: "
-                  f"{summary} kernel_ms={ms:.4f} twin_ms={plain_ms:.4f}",
+            plain_ms = _time_ms(
+                lambda: kernels.score_locomotion_candidates_ref(
+                    *args, chain=ch), 3)
+            bound_ms, by, frac = _selection_bound(*args, chain=ch)
+            lanes = kernels.selection_lanes(n_chars, alphas.shape[1], n_sm)
+            shape = (f"C={n_chars} N={alphas.shape[1]} K={alphas.shape[2]}"
+                     + (f" L={ch.shape[0]} rows={mop.shape[1]}" if ee
+                        else "") + f" G8={g8}")
+            print(f"{tag} score_locomotion_candidates{'(chain)' if ee else ''}"
+                  f" {label} {shape}: {summary} kernel_ms={ms:.4f} "
+                  f"share_of_bound={bound_ms / ms:.3f} (bound_ms="
+                  f"{bound_ms:.4f}, {by}; the searches read {frac:.3f} of "
+                  f"the table rows) lanes={lanes} twin_ms={plain_ms:.4f}",
                   flush=True)
-            results[g8] = (ms, plain_ms)
+            if not ee:
+                _lanes_sweep(label, args, n_sm)
+            results[(n_chars, g8)] = (ms, plain_ms, bound_ms, by)
+    if not ee:
+        for n_chars in LANES_BATCHES:
+            _lanes_sweep("batch", _b1_inputs(stacked, skel, n_chars, 1000,
+                                             device, 1000 + n_chars)[:4],
+                         n_sm)
     return worst, results
 
 
 def phase_b2(device):
+    """B2 against its twin at [1024, 28, 28], three zero systems solving to
+    0; beside it torch.linalg.solve_ex, the one PyTorch call for the same
+    solve."""
     import torch
     from morphablegraphs_tpu_torch.ops import kernels
     gen = torch.Generator(device=device).manual_seed(5)
@@ -284,16 +394,24 @@ def phase_b2(device):
     err = (x_k - x_t).abs()
     ms = _time_ms(lambda: kernels.chol_solve(a, g), 50)
     plain_ms = _time_ms(lambda: kernels.chol_solve_unrolled(a, g), 5)
+    # the one PyTorch call for the same solve (batched LU, no info check)
+    library_ms = _time_ms(lambda: torch.linalg.solve_ex(a, g), 50)
+    k = a.shape[-1]
+    bound_ms, by = _bound(_nbytes(a, g, x_k),
+                          KERNEL_CHARS * (k ** 3 / 3 + 2 * k * k))
     print(f"B2 chol_solve [{KERNEL_CHARS}, 28, 28]: max_abs_err={float(err.max()):.3e} "
           f"max_rel_err={float((err / x_t.abs().clamp(min=1e-6)).max()):.3e} "
           f"(tol {B2_ATOL}+{B2_RTOL}*|x|) kernel_ms={ms:.4f} "
-          f"twin_ms={plain_ms:.4f}", flush=True)
+          f"share_of_bound={bound_ms / ms:.3f} (bound_ms={bound_ms:.5f}, "
+          f"{by}) twin_ms={plain_ms:.4f} "
+          f"torch.linalg.solve_ex_ms={library_ms:.4f}", flush=True)
     if not bool(torch.isfinite(x_k).all()) or \
             bool((err > B2_ATOL + B2_RTOL * x_t.abs()).any()):
         _fail("B2 disagrees with its twin")
     if float(x_k[-3:].abs().max()) != 0.0:
         _fail("B2: a zero system did not solve to 0")
-    return float(err.max()), ms, plain_ms
+    return dict(max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, library_ms=library_ms)
 
 
 def phase_b4(device):
@@ -318,17 +436,22 @@ def phase_b4(device):
     ms = _time_ms(lambda: kernels.lm_delta(j, r, lam, rad), 50)
     plain_ms = _time_ms(lambda: kernels.lm_delta_ref(j, r, lam, rad), 5)
     b2_route_ms = _time_ms(lambda: lm.lm_delta(j, r, lam, rad), 50)
+    # JtJ (upper triangle), Jtr, the factor and the two substitutions
+    bound_ms, by = _bound(_nbytes(j, r, lam, rad, d_k), c * (
+        n_res * k * (k + 1) + 2 * n_res * k + k ** 3 / 3 + 2 * k * k))
     print(f"B4 lm_delta [{c}, {n_res}, {k}]: max_abs_err={float(err.max()):.3e} "
           f"max_rel_err={float((err / d_t.abs().clamp(min=1e-6)).max()):.3e} "
           f"(tol {B4_ATOL}+{B4_RTOL}*|x|) kernel_ms={ms:.4f} "
-          f"twin_ms={plain_ms:.4f} step_via_B2_ms={b2_route_ms:.4f}",
+          f"share_of_bound={bound_ms / ms:.3f} (bound_ms={bound_ms:.5f}, "
+          f"{by}) twin_ms={plain_ms:.4f} step_via_B2_ms={b2_route_ms:.4f}",
           flush=True)
     if not bool(torch.isfinite(d_k).all()) or \
             bool((err > B4_ATOL + B4_RTOL * d_t.abs()).any()):
         _fail("B4 disagrees with its twin")
     if float(d_k[-3:].abs().max()) != 0.0:
         _fail("B4: a zero character did not give delta = 0")
-    return float(err.max()), ms, plain_ms
+    return dict(max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, library_ms=None)
 
 
 def _node_draws(stacked, n_rows, device, seed, scale=1.0):
@@ -364,19 +487,26 @@ def phase_b5(stacked, device):
     ms = _time_ms(lambda: kernels.gmm_nll_and_grad(*args, node), 50)
     plain_ms = _time_ms(lambda: kernels.gmm_nll_and_grad_ref(*args, node), 5)
     worst = max(float(e.max()) for e in errs.values())
+    # per row and component: y = (x - mu) P, |y|^2 and the gradient P y
+    k, d = args[2].shape[1:]
+    bound_ms, by = _bound(_nbytes(*args, node, nll_k, g_k),
+                          KERNEL_CHARS * k * (4 * d * d + 3 * d))
     print(f"B5 gmm_nll_and_grad [{KERNEL_CHARS}, K={args[1].shape[1]}, "
           f"D={x.shape[1]}] over {stacked.n_nodes} nodes: "
           + " ".join(f"max_abs_err_{k}={float(e.max()):.3e}"
                      for k, e in errs.items())
           + f" (|log p| up to {float(lp_t.abs().max()):.1f}, |grad| up to "
           f"{float(g_t.abs().max()):.1f}; tol {B5_ATOL}+{B5_RTOL}*|x|) "
-          f"kernel_ms={ms:.4f} twin_ms={plain_ms:.4f}", flush=True)
+          f"kernel_ms={ms:.4f} share_of_bound={bound_ms / ms:.3f} "
+          f"(bound_ms={bound_ms:.5f}, {by}) twin_ms={plain_ms:.4f}",
+          flush=True)
     for k, e in errs.items():
         if bool((e > B5_ATOL + B5_RTOL * refs[k].abs()).any()):
             _fail(f"B5 disagrees with its twin ({k})")
     if not all(bool(torch.isfinite(t).all()) for t in (lp_k, nll_k, g_k)):
         _fail("B5 produced non-finite values")
-    return worst, ms, plain_ms
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, library_ms=None)
 
 
 def phase_b6(stacked, device):
@@ -405,20 +535,27 @@ def phase_b6(stacked, device):
                                                           mix_id=mix), 50)
         plain_ms = _time_ms(lambda: kernels.crowd_back_project_ref(
             a, e, m, b, mix_id=mix), 5)
+        t, nb = b.shape[-2:]
+        nd = out_k.shape[-1]
+        bound_ms, by = _bound(
+            _nbytes(a, e, m, b, out_k, *(() if mix is None else (mix,))),
+            KERNEL_CHARS * (2 * nb * nd * a.shape[1] + 2 * t * nb * nd))
         print(f"B6 crowd_back_project ({label}) [{KERNEL_CHARS}, T="
               f"{b.shape[-2]}, n_basis={b.shape[-1]}, n_dim="
               f"{out_k.shape[-1]}, K={a.shape[1]}]: max_abs_err="
               f"{float(err.max()):.3e} (|x| up to "
               f"{float(out_t.abs().max()):.1f}; tol {B6_ATOL}+{B6_RTOL}*|x|) "
-              f"kernel_ms={ms:.4f} twin_ms={plain_ms:.4f} "
+              f"kernel_ms={ms:.4f} share_of_bound={bound_ms / ms:.3f} "
+              f"(bound_ms={bound_ms:.5f}, {by}) twin_ms={plain_ms:.4f} "
               f"({out_k.numel() * 4 / ms / 1e6:.0f} GB/s of output)",
               flush=True)
         if not bool(torch.isfinite(out_k).all()) or \
                 bool((err > B6_ATOL + B6_RTOL * out_t.abs()).any()):
             _fail(f"B6 ({label}) disagrees with its twin")
         worst = max(worst, float(err.max()))
-        times[label] = (ms, plain_ms)
-    return worst, times["gathered"]
+        times[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=by, library_ms=None)
+    return dict(max_abs_err=worst, **times["gathered"])
 
 
 def _traj_request(end_x, end_z):
@@ -823,10 +960,15 @@ def phase_random_crowd(name, stacked, device, card: str, reps: int = 3):
     return float(np.median(times)), fps, launches, run
 
 
+PORT_KERNELS = ("score_loco_kernel", "chol_solve_kernel", "lm_delta_kernel",
+                "gmm_scores_kernel", "back_project_kernel")
+
+
 def phase_profile(name, run, crowd_seconds: float):
     """One more crowd run under torch.profiler: device busy time from the
-    CUDA kernel events, and CPU / device time per walk stage (the walk.*
-    ranges of constrained_walk.full_walk_step)."""
+    CUDA kernel events, CPU / device time per walk stage (the walk.*
+    ranges of constrained_walk.full_walk_step), and each of the port's
+    kernels' device time and launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -853,10 +995,17 @@ def phase_profile(name, run, crowd_seconds: float):
             host += e.time_range.elapsed_us() / 1e3
             busy += e.device_time_total / 1e3
         stages[e.name] = (host, busy, span)
-    by_kernel = {}
+    by_kernel, ours = {}, {}
     for e in kernel_events:
         by_kernel[e.name] = by_kernel.get(e.name, 0.0) \
             + e.time_range.elapsed_us() / 1e3
+        # the port's kernels: launched through ctypes, outside any torch
+        # op, so no walk.* range's device busy time counts them
+        m = re.search(r"(\w+_kernel)(<[^(]*>)?\(", e.name)
+        if m and m.group(1) in PORT_KERNELS:
+            ms, count = ours.get(m.group(0)[:-1], (0.0, 0))
+            ours[m.group(0)[:-1]] = (ms + e.time_range.elapsed_us() / 1e3,
+                                     count + 1)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]
     print(f"profile {name}: one crowd run, {len(kernel_events)} kernel "
           f"launches, "
@@ -870,6 +1019,30 @@ def phase_profile(name, run, crowd_seconds: float):
           flush=True)
     print(f"profile {name} top kernels (device ms): " + "; ".join(
         f"{name[:60]} {ms:.2f}" for name, ms in top), flush=True)
+    print(f"profile {name} the port's kernels (device ms / launches): "
+          + "; ".join(f"{k} {ms:.2f}/{n}" for k, (ms, n) in sorted(
+              ours.items())), flush=True)
+
+
+def _resource_usage():
+    """Registers and local memory (spills) of each instance of the
+    selection kernel, as cuobjdump reads them from the built library ->
+    one summary per instance."""
+    from morphablegraphs_tpu_torch.ops import cuda_build
+    tool = pathlib.Path(cuda_build._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "--dump-resource-usage",
+                          str(cuda_build.library_path())],
+                         capture_output=True, text=True, timeout=120)
+    if out.returncode != 0:
+        _fail(f"cuobjdump: {out.stderr.strip()}")
+    found = [f"{'B3' if m.group(1) == '1' else 'B1'} lanes {m.group(2)}: "
+             f"{m.group(3)} registers, {m.group(4)} B local"
+             for m in re.finditer(r"score_loco_kernelILb([01])ELi(\d+)E\S*:"
+                                  r"\s+REG:(\d+) STACK:\d+ SHARED:\d+ "
+                                  r"LOCAL:(\d+)", out.stdout)]
+    if not found:
+        _fail("cuobjdump lists no instance of the selection kernel")
+    return found
 
 
 def main():
@@ -890,15 +1063,24 @@ def main():
     cuda_build.load_library()
     print(f"build: kernels built and loaded in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    print("resources of score_loco.cu: " + "; ".join(_resource_usage()),
+          flush=True)
 
     graph, stacked = _ref_model(device)
     skel = graph.skeleton
-    b1_err, b1_times = phase_b1(stacked, skel, device)
-    b2_err, b2_ms, b2_plain = phase_b2(device)
-    b3_err, b3_times = phase_b3(stacked, skel, device)
-    b4_err, b4_ms, b4_plain = phase_b4(device)
-    b5_err, b5_ms, b5_plain = phase_b5(stacked, device)
-    b6_err, (b6_ms, b6_plain) = phase_b6(stacked, device)
+    res = {}
+    b1_err, b1_times = phase_selection(stacked, skel, device, False)
+    res["chol_solve"] = phase_b2(device)
+    b3_err, b3_times = phase_selection(stacked, skel, device, True)
+    res["lm_delta"] = phase_b4(device)
+    res["gmm_scores"] = phase_b5(stacked, device)
+    res["crowd_back_project"] = phase_b6(stacked, device)
+    for name, err, times in (
+            ("score_locomotion_candidates", b1_err, b1_times),
+            ("score_locomotion_candidates_ee", b3_err, b3_times)):
+        ms, plain_ms, bound_ms, by = times[(KERNEL_CHARS, 264)]
+        res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=by, library_ms=None)
 
     serve_counts = phase_serve(graph, device)
     phase_reference(stacked, skel)
@@ -916,36 +1098,22 @@ def main():
     phase_profile("random segments (config 5)", randoms["segments"][3],
                   randoms["segments"][0])
 
-    b1_ms, b1_plain = b1_times[264]
-    b3_ms, b3_plain = b3_times[264]
     src = "morphablegraphs_tpu_torch/csrc/"
     tpu = "morphablegraphs_tpu/ops/pallas_kernels.py:"
+    # (kernel, source, TPU kernel's line, the run whose launches count)
+    table = (("score_locomotion_candidates", "score_loco.cu", 561,
+              serve_counts),
+             ("chol_solve", "chol_solve.cu", 755, serve_counts),
+             ("score_locomotion_candidates_ee", "score_loco.cu", 477,
+              crowds["ee"][3]),
+             ("lm_delta", "lm_delta.cu", 886, crowds["ee_fused"][3]),
+             ("gmm_scores", "gmm_scores.cu", 163, crowds["root"][3]),
+             ("crowd_back_project", "back_project.cu", 76,
+              randoms["segments"][2]))
     print(json.dumps({"kernels": [
-        {"name": "score_locomotion_candidates", "route": "cuda",
-         "source": src + "score_loco.cu", "replaces": tpu + "561",
-         "launches": serve_counts["score_locomotion_candidates"],
-         "max_abs_err": b1_err, "ms": b1_ms, "plain_ms": b1_plain},
-        {"name": "chol_solve", "route": "cuda",
-         "source": src + "chol_solve.cu", "replaces": tpu + "755",
-         "launches": serve_counts["chol_solve"],
-         "max_abs_err": b2_err, "ms": b2_ms, "plain_ms": b2_plain},
-        {"name": "score_locomotion_candidates_ee", "route": "cuda",
-         "source": src + "score_loco.cu", "replaces": tpu + "477",
-         "launches": crowds["ee"][3]["score_locomotion_candidates_ee"],
-         "max_abs_err": b3_err, "ms": b3_ms, "plain_ms": b3_plain},
-        {"name": "lm_delta", "route": "cuda",
-         "source": src + "lm_delta.cu", "replaces": tpu + "886",
-         "launches": crowds["ee_fused"][3]["lm_delta"],
-         "max_abs_err": b4_err, "ms": b4_ms, "plain_ms": b4_plain},
-        {"name": "gmm_scores", "route": "cuda",
-         "source": src + "gmm_scores.cu", "replaces": tpu + "163",
-         "launches": crowds["root"][3]["gmm_scores"],
-         "max_abs_err": b5_err, "ms": b5_ms, "plain_ms": b5_plain},
-        {"name": "crowd_back_project", "route": "cuda",
-         "source": src + "back_project.cu", "replaces": tpu + "76",
-         "launches": randoms["segments"][2]["crowd_back_project"],
-         "max_abs_err": b6_err, "ms": b6_ms, "plain_ms": b6_plain}]}),
-        flush=True)
+        {"name": name, "route": "cuda", "source": src + source,
+         "replaces": f"{tpu}{line}", "launches": counts[name], **res[name]}
+        for name, source, line, counts in table]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -11,37 +11,64 @@
 // distances against the character's arc table.  B3 (EE = true) adds one
 // position-only end-effector keyframe: the operator's extra rows give the
 // raw root translation and each chain joint's local quaternion at the
-// keyframe, and each thread walks the ancestor chain for its own candidate
-// (the chain table [L, 8] staged in shared memory), in fk_global's
-// composition order with unnormalized quaternions, exactly as the TPU
-// kernel: the aligning rotation enters as the half-angle quaternion (c2, s2)
-// of (ct, st), a fixed joint takes its rest rotation, and the distance is
-// sqrt(max(., 1e-12)).  B3's extra rows cost 32 x 26 floats (3.3 KB) of
-// shared memory and ~L rotate-multiply pairs per candidate, next to the
-// searches below.
+// keyframe, and each candidate walks the ancestor chain (the chain table
+// [L, 8] staged in shared memory), in fk_global's composition order with
+// unnormalized quaternions, exactly as the TPU kernel: the aligning rotation
+// enters as the half-angle quaternion (c2, s2) of (ct, st), a fixed joint
+// takes its rest rotation, and the distance is sqrt(max(., 1e-12)).
 //
 // What bounds it on the H100: not memory (a character's operator is 16 KB,
-// its arc table at most 24 KB, a candidate's latent 100 B) but the
-// sequential closest-point searches, 16 x 2 passes over up to 1008 table
-// rows per candidate, about 10 flops per row.  The design keeps everything
-// the searches read in shared memory: one block per (character, 128-candidate
-// tile), one thread per candidate, the operator, the tile's latents
-// (transposed, candidate-minor, so a warp reads 32 consecutive words) and the
-// table with its precomputed |t|^2 all staged once per block.  Only the frame
-// rows the body reads are evaluated, each a (K+1)-long dot product, so no
-// thread holds 152 frame rows in registers.  The distance uses the expanded
-// |t|^2 - 2 t.p + |p|^2 form of the TPU kernel, with round-to-nearest
-// intrinsics so both passes of a search compute bit-identical values.
+// its arc table at most 24 KB, a candidate's latent 100 B) but the 16
+// advancing closest-point searches per candidate, each a pass over the
+// table rows at or above its floor and a short second pass.  The first
+// design (one thread a candidate, both passes over the whole table, six
+// scalar shared loads per row and pass) was bound by shared-load issue.
+// This one is bound by instruction issue: ~7 instructions a table row in
+// pass 1 (a 16-byte load, 4 operations of |t|^2 - 2 t.p, a minimum, the
+// loop) at about half the card's issue rate; rows of 12 bytes, four
+// running minima or more warps per SM did not run faster.  What the design
+// does:
+// * One 16-byte load per table row: each row is staged as
+//   {-2x, -2y, -2z, |t|^2}, with |t|^2 = NaN on a row that is not valid, so
+//   such a row fails every compare without a second load.  -2 t.p built from
+//   the pre-scaled row is exactly -(2 t.p) (scaling by 2 commutes with
+//   round-to-nearest), so |t|^2 + (-2 t.p) + |p|^2 keeps the bits of the
+//   TPU kernel's |t|^2 - 2 t.p + |p|^2; the _rn intrinsics keep both passes
+//   on the same bits.
+// * A search that starts at its floor.  Beside the rows, the block stages
+//   the running maximum of the valid rows' arcs (NaN before the first valid
+//   row).  PRECONDITION: the arcs never decrease over the valid rows, as
+//   pack_path_table builds them (a cumsum of segment lengths).  A binary
+//   search over that column finds the first valid row at or above the floor
+//   min_arc - 1e-6; every valid row after it is above the floor too, so
+//   pass 1 reads rows from there on, and the first row of pass 2 within
+//   1e-6 of the minimum has the smallest arc of all such rows: pass 2 stops
+//   there.  dmin2, the arc and the sum equal two full masked passes bit for
+//   bit (tests/test_torch_score_search.py emulates this order on the CPU).
+// * The lanes of a warp scan the same rows in step, from the warp's
+//   smallest start (each lane masks the rows below its own), so a row load
+//   is one broadcast for the whole warp.  Pass 1 takes the minimum of
+//   |t|^2 - 2 t.p and adds |p|^2 once: rounding that sum is monotone, so
+//   the result has the bits of the least distance.
+// * LPC lanes per candidate (a template width 1, 2, ..., 32): a candidate's
+//   rows are strided over its lanes, its minimum reduced with shuffles and
+//   its first hit found with ballots.  The wrapper picks LPC so that the
+//   grid holds at least eight warps per SM: 1 at the crowd (1024 x 128
+//   candidates), 4 at 128 x 128, 32 at the serving batch (8 x 128).
+// * The first 32 latent coefficients of a candidate live in registers and
+//   the operator rows are read as float4; every frame row keeps the k order
+//   of its fmaf chain, so every score keeps its bits.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int N_EVAL = 19;  // goal kf | dir | 16 traj samples | frame 0
-constexpr int CH = 8;       // channels per eval frame (x y z qw qx qy qz pad)
-constexpr int N_BLK = 128;  // candidates per block
+constexpr int N_EVAL = 19;    // goal kf | dir | 16 traj samples | frame 0
+constexpr int CH = 8;         // channels per eval frame (x y z qw qx qy qz pad)
+constexpr int N_THREADS = 128;  // threads per block
+constexpr int KR = 32;        // latent coefficients held in registers
 constexpr int CFG_W = 48;
-constexpr int TAB_W = 6;    // shared table row: x y z arc valid |t|^2
+constexpr unsigned FULL = 0xffffffffu;
 constexpr float PI_F = 3.14159265358979323846f;
 
 __device__ __forceinline__ float poly_atan2(float y, float x) {
@@ -56,53 +83,100 @@ __device__ __forceinline__ float poly_atan2(float y, float x) {
   return (y < 0.f) ? -r : r;
 }
 
-__device__ __forceinline__ float table_d2(const float* t, float px, float py,
-                                          float pz, float pn2) {
-  float cross = __fmaf_rn(t[2], pz, __fmaf_rn(t[1], py, __fmul_rn(t[0], px)));
-  return __fadd_rn(__fsub_rn(t[5], __fmul_rn(2.f, cross)), pn2);
+// |t|^2 - 2 t.p from a staged row {-2x, -2y, -2z, |t|^2}; the distance
+// adds |p|^2 to it
+__device__ __forceinline__ float table_x(float4 t, float px, float py,
+                                         float pz) {
+  float cross2 = __fmaf_rn(t.z, pz, __fmaf_rn(t.y, py, __fmul_rn(t.x, px)));
+  return __fadd_rn(t.w, cross2);
 }
 
-template <bool EE>
-__global__ void score_loco_kernel(const float* __restrict__ mop,
-                                  const float* __restrict__ alphas,
-                                  const float* __restrict__ table,
-                                  const float* __restrict__ cfg,
-                                  const float* __restrict__ chain,
-                                  float* __restrict__ out, int n, int k,
-                                  int g8, int rows, int depth) {
-  extern __shared__ float smem[];
-  const int k1 = k + 1;
-  float* s_mop = smem;                  // [rows, k1]
-  float* s_alpha = s_mop + rows * k1;   // [k1, N_BLK]
-  float* s_tab = s_alpha + k1 * N_BLK;  // [g8, TAB_W]
-  float* s_chain = s_tab + g8 * TAB_W;  // [depth, 8] (EE)
+template <bool EE, int LPC>
+__global__ void __launch_bounds__(N_THREADS, 4)
+score_loco_kernel(const float* __restrict__ mop,
+                  const float* __restrict__ alphas,
+                  const float* __restrict__ table,
+                  const float* __restrict__ cfg,
+                  const float* __restrict__ chain, float* __restrict__ out,
+                  int n, int k, int g8, int rows, int depth) {
+  constexpr int CPB = N_THREADS / LPC;  // candidates per block
+  extern __shared__ float4 smem4[];
+  __shared__ float s_wmax[N_THREADS / 32];
+  const int k1 = k + 1, k1p = (k1 + 3) & ~3;
+  float4* s_tab = smem4;                                // [g8]
+  float* s_key = reinterpret_cast<float*>(s_tab + g8);  // [g8]
+  float* s_mop = s_key + ((g8 + 3) & ~3);               // [rows, k1p]
+  float* s_alpha = s_mop + rows * k1p;                  // [k1, CPB]
+  float* s_chain = s_alpha + k1 * CPB;                  // [depth, 8] (EE)
   const int c = blockIdx.y;
-  const int tid = threadIdx.x;
-  const size_t cand0 = (size_t)c * n + (size_t)blockIdx.x * N_BLK;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int cl = tid / LPC;   // this thread's candidate within the block
+  const int sub = tid % LPC;  // and its lane within the candidate
+  const size_t cand0 = (size_t)c * n + (size_t)blockIdx.x * CPB;
+  const float qnan = __int_as_float(0x7fffffff);
+  const float inf = __int_as_float(0x7f800000);
 
-  const float* mop_c = mop + (size_t)c * rows * k1;
-  for (int i = tid; i < rows * k1; i += N_BLK) s_mop[i] = mop_c[i];
-  const float* al = alphas + cand0 * k;
-  for (int i = tid; i < N_BLK * k; i += N_BLK)
-    s_alpha[(i % k) * N_BLK + i / k] = al[i];
-  s_alpha[k * N_BLK + tid] = 1.f;
+  // table rows, one contiguous chunk a thread, and the running maximum of
+  // the valid arcs: chunk maxima, then a block scan, then the chunk again
   const float* tab_c = table + (size_t)c * g8 * 5;
-  for (int r = tid; r < g8; r += N_BLK) {
-    float x = tab_c[r * 5], y = tab_c[r * 5 + 1], z = tab_c[r * 5 + 2];
-    float* t = s_tab + r * TAB_W;
-    t[0] = x; t[1] = y; t[2] = z;
-    t[3] = tab_c[r * 5 + 3];
-    t[4] = tab_c[r * 5 + 4];
-    t[5] = x * x + y * y + z * z;
+  const int chunk = (g8 + N_THREADS - 1) / N_THREADS;
+  const int r0 = min(tid * chunk, g8), r1 = min(r0 + chunk, g8);
+  float run = qnan;
+  for (int r = r0; r < r1; ++r) {
+    const float* t = tab_c + r * 5;
+    const float x = t[0], y = t[1], z = t[2], arc = t[3];
+    const bool ok = t[4] > 0.f && arc == arc;
+    const float w = x * x + y * y + z * z;
+    s_tab[r] = make_float4(-2.f * x, -2.f * y, -2.f * z, ok ? w : qnan);
+    s_key[r] = ok ? arc : qnan;
+    run = fmaxf(run, s_key[r]);
   }
+  for (int off = 1; off < 32; off <<= 1) {
+    const float v = __shfl_up_sync(FULL, run, off);
+    if (lane >= off) run = fmaxf(run, v);
+  }
+  if (lane == 31) s_wmax[tid >> 5] = run;
+  const float* mop_c = mop + (size_t)c * rows * k1;
+  for (int i = tid; i < rows * k1p; i += N_THREADS) {
+    const int r = i / k1p, kk = i - r * k1p;
+    s_mop[i] = kk < k1 ? mop_c[r * k1 + kk] : 0.f;
+  }
+  const float* al = alphas + cand0 * k;
+  for (int i = tid; i < CPB * k; i += N_THREADS)
+    s_alpha[(i % k) * CPB + i / k] = al[i];
+  for (int i = tid; i < CPB; i += N_THREADS) s_alpha[k * CPB + i] = 1.f;
   if (EE)
-    for (int i = tid; i < depth * 8; i += N_BLK) s_chain[i] = chain[i];
+    for (int i = tid; i < depth * 8; i += N_THREADS) s_chain[i] = chain[i];
+  __syncthreads();
+  float prev = __shfl_up_sync(FULL, run, 1);
+  if (lane == 0) prev = qnan;
+  for (int w = 0; w < (tid >> 5); ++w) prev = fmaxf(prev, s_wmax[w]);
+  for (int r = r0; r < r1; ++r) {
+    prev = fmaxf(prev, s_key[r]);
+    s_key[r] = prev;
+  }
   __syncthreads();
 
+  float a[KR];
+#pragma unroll
+  for (int kk = 0; kk < KR; ++kk)
+    a[kk] = kk < k1 ? s_alpha[kk * CPB + cl] : 0.f;
+
   auto row = [&](int r) {
-    const float* m = s_mop + r * k1;
+    const float4* m = reinterpret_cast<const float4*>(s_mop + r * k1p);
     float s = 0.f;
-    for (int kk = 0; kk < k1; ++kk) s = fmaf(m[kk], s_alpha[kk * N_BLK + tid], s);
+#pragma unroll
+    for (int q = 0; q < KR / 4; ++q) {
+      if (4 * q < k1) {
+        const float4 v = m[q];
+        s = fmaf(v.x, a[4 * q], s);
+        if (4 * q + 1 < k1) s = fmaf(v.y, a[4 * q + 1], s);
+        if (4 * q + 2 < k1) s = fmaf(v.z, a[4 * q + 2], s);
+        if (4 * q + 3 < k1) s = fmaf(v.w, a[4 * q + 3], s);
+      }
+    }
+    for (int kk = KR; kk < k1; ++kk)
+      s = fmaf(s_mop[r * k1p + kk], s_alpha[kk * CPB + cl], s);
     return s;
   };
 
@@ -133,9 +207,8 @@ __global__ void score_loco_kernel(const float* __restrict__ mop,
   float c_new = hz0 * inv_n, s_new = hx0 * inv_n;
   float ct = has_prev ? cos_a_prev * c_new + sin_a_prev * s_new : cos_start;
   float st = has_prev ? sin_a_prev * c_new - cos_a_prev * s_new : sin_start;
-  float r0 = row(f0), r2 = row(f0 + 2);
-  float r0x = ct * r0 + st * r2;
-  float r0z = -st * r0 + ct * r2;
+  float r0x = ct * row(f0) + st * row(f0 + 2);
+  float r0z = -st * row(f0) + ct * row(f0 + 2);
   float dx = has_prev ? prev_x - r0x : sdx;
   float dz = has_prev ? prev_z - r0z : sdz;
   float dy = has_prev ? 0.f : sdy;
@@ -159,6 +232,8 @@ __global__ void score_loco_kernel(const float* __restrict__ mop,
   float dir_err = fabsf(wrapped) * (180.f / PI_F);
 
   // trajectory: 16 advancing masked closest-point searches on the table
+  const unsigned grp = (unsigned)(lane & ~(LPC - 1));  // candidate's lane 0
+  const unsigned grp_bits = LPC == 32 ? FULL : (1u << LPC) - 1u;
   float traj_sum = 0.f;
   for (int f = 2; f < 2 + 16; ++f) {
     float p0 = row(f * CH), p2 = row(f * CH + 2);
@@ -167,25 +242,53 @@ __global__ void score_loco_kernel(const float* __restrict__ mop,
     float py = (row(f * CH + 1) + dy) * my;
     float pn2 = px * px + py * py + pz * pz;
     float lo_arc = min_arc - 1e-6f;
-    float dmin2 = __int_as_float(0x7f800000);
-    bool any_valid = false;
-    for (int r = 0; r < g8; ++r) {
-      const float* t = s_tab + r * TAB_W;
-      if (t[3] >= lo_arc && t[4] > 0.f) {
-        dmin2 = fminf(dmin2, table_d2(t, px, py, pz, pn2));
-        any_valid = true;
+    // the first row whose running valid-arc maximum reaches the floor;
+    // start == g8: no valid row at or above it
+    int lo = 0, hi = g8;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (s_key[mid] >= lo_arc) hi = mid; else lo = mid + 1;
+    }
+    const int start = lo;
+    // the warp's rows: from its first start; from wend on, no searching
+    // lane masks a row (a lane past the end reads rows it never uses)
+    const int wstart = (int)__reduce_min_sync(FULL, (unsigned)start);
+    const int wend =
+        (int)__reduce_max_sync(FULL, start < g8 ? (unsigned)start : 0u);
+    // pass 1: the least |t|^2 - 2 t.p over the valid rows from start on;
+    // adding |p|^2 rounds monotonically, so the least distance is that
+    // minimum plus |p|^2, the same bits as the least of the distances
+    float xmin = inf;
+    int r = wstart + sub;
+    for (; r < wend; r += LPC) {
+      const float x = table_x(s_tab[r], px, py, pz);
+      if (r >= start) xmin = fminf(xmin, x);
+    }
+#pragma unroll 4
+    for (; r < g8; r += LPC) xmin = fminf(xmin, table_x(s_tab[r], px, py, pz));
+#pragma unroll
+    for (int off = LPC / 2; off > 0; off >>= 1)
+      xmin = fminf(xmin, __shfl_xor_sync(FULL, xmin, off));
+    float dmin2 = __fadd_rn(xmin, pn2);
+    if (!(dmin2 == dmin2)) dmin2 = inf;  // |p|^2 NaN: no distance counts
+    // pass 2: the first row within 1e-6 of it has the smallest arc
+    const float thr = dmin2 + 1e-6f;
+    int hit = start < g8 ? -1 : g8;
+    for (int base = wstart; base < g8 && !__all_sync(FULL, hit >= 0);
+         base += LPC) {
+      r = base + sub;
+      const bool h = hit < 0 && r < g8 && r >= start &&
+                     __fadd_rn(table_x(s_tab[r], px, py, pz), pn2) <= thr;
+      if (LPC == 1) {
+        if (h) hit = r;
+      } else {
+        const unsigned b = (__ballot_sync(FULL, h) >> grp) & grp_bits;
+        if (hit < 0 && b) hit = base + __ffs(b) - 1;
       }
     }
     float arc_sel;
-    if (any_valid) {
-      float thr = dmin2 + 1e-6f;
-      arc_sel = __int_as_float(0x7f800000);
-      for (int r = 0; r < g8; ++r) {
-        const float* t = s_tab + r * TAB_W;
-        if (t[3] >= lo_arc && t[4] > 0.f &&
-            table_d2(t, px, py, pz, pn2) <= thr)
-          arc_sel = fminf(arc_sel, t[3]);
-      }
+    if (start < g8) {
+      arc_sel = hit >= 0 ? s_key[hit] : inf;
     } else {  // past the end: distance to the last real point, full arc
       dmin2 = (ex - px) * (ex - px) + (ey - py) * (ey - py) +
               (ez - pz) * (ez - pz);
@@ -248,40 +351,65 @@ __global__ void score_loco_kernel(const float* __restrict__ mop,
     err += cf[31] * cf[32] *
            sqrtf(fmaxf(ddx * ddx + ddy * ddy + ddz * ddz, 1e-12f));
   }
-  out[cand0 + tid] = err;
+  if (sub == 0) out[cand0 + cl] = err;
 }
 
-template <bool EE>
+template <bool EE, int LPC>
 int launch(const float* mop, const float* alphas, const float* table,
            const float* cfg, const float* chain, float* out, int c, int n,
            int k, int g8, int depth, void* stream) {
+  constexpr int CPB = N_THREADS / LPC;
   const int rows = N_EVAL * CH + (EE ? ((3 + 4 * depth + 7) / 8) * 8 : 0);
-  size_t smem = sizeof(float) *
-                ((size_t)rows * (k + 1) + (size_t)(k + 1) * N_BLK +
-                 (size_t)g8 * TAB_W + (EE ? (size_t)depth * 8 : 0));
+  const size_t k1p = (size_t)((k + 4) & ~3);
+  const size_t smem = sizeof(float4) * (size_t)g8 +
+                      sizeof(float) * ((size_t)((g8 + 3) & ~3) + rows * k1p +
+                                       (size_t)(k + 1) * CPB +
+                                       (EE ? (size_t)depth * 8 : 0));
   cudaError_t err = cudaFuncSetAttribute(
-      score_loco_kernel<EE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      score_loco_kernel<EE, LPC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(n / N_BLK, c);
-  score_loco_kernel<EE><<<grid, N_BLK, smem, (cudaStream_t)stream>>>(
+  dim3 grid(n / CPB, c);
+  score_loco_kernel<EE, LPC><<<grid, N_THREADS, smem, (cudaStream_t)stream>>>(
       mop, alphas, table, cfg, chain, out, n, k, g8, rows, depth);
   return (int)cudaGetLastError();
+}
+
+template <bool EE>
+int launch_lanes(int lanes, const float* mop, const float* alphas,
+                 const float* table, const float* cfg, const float* chain,
+                 float* out, int c, int n, int k, int g8, int depth,
+                 void* stream) {
+#define MG_LAUNCH(L)                                                       \
+  launch<EE, L>(mop, alphas, table, cfg, chain, out, c, n, k, g8, depth, \
+                stream)
+  switch (lanes) {
+    case 1: return MG_LAUNCH(1);
+    case 2: return MG_LAUNCH(2);
+    case 4: return MG_LAUNCH(4);
+    case 8: return MG_LAUNCH(8);
+    case 16: return MG_LAUNCH(16);
+    case 32: return MG_LAUNCH(32);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef MG_LAUNCH
 }
 
 }  // namespace
 
 extern "C" int mg_score_loco(const float* mop, const float* alphas,
                              const float* table, const float* cfg, float* out,
-                             int c, int n, int k, int g8, void* stream) {
-  return launch<false>(mop, alphas, table, cfg, nullptr, out, c, n, k, g8, 0,
-                       stream);
+                             int c, int n, int k, int g8, int lanes,
+                             void* stream) {
+  return launch_lanes<false>(lanes, mop, alphas, table, cfg, nullptr, out, c,
+                             n, k, g8, 0, stream);
 }
 
 extern "C" int mg_score_loco_ee(const float* mop, const float* alphas,
                                 const float* table, const float* cfg,
                                 const float* chain, float* out, int c, int n,
-                                int k, int g8, int depth, void* stream) {
-  return launch<true>(mop, alphas, table, cfg, chain, out, c, n, k, g8, depth,
-                      stream);
+                                int k, int g8, int depth, int lanes,
+                                void* stream) {
+  return launch_lanes<true>(lanes, mop, alphas, table, cfg, chain, out, c, n,
+                            k, g8, depth, stream);
 }

@@ -48,9 +48,9 @@ def _nvcc() -> str:
 
 def _declare(lib):
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mg_score_loco.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, vp]
+    lib.mg_score_loco.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, vp]
     lib.mg_score_loco_ee.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i,
-                                     vp]
+                                     i, vp]
     lib.mg_chol_solve.argtypes = [vp, vp, vp, i, i, vp]
     lib.mg_lm_delta.argtypes = [vp, vp, vp, vp, vp, i, i, i, f, vp]
     lib.mg_back_project.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, i,
@@ -80,8 +80,8 @@ def load_library():
     with _lock:
         if _lib is not None:
             return _lib
-        out_dir = _BUILD_ROOT / source_hash()
-        so = out_dir / "libmg_kernels.so"
+        so = library_path()
+        out_dir = so.parent
         if not so.exists():
             out_dir.mkdir(parents=True, exist_ok=True)
             # build in a private directory, then rename the library: a
@@ -98,6 +98,11 @@ def load_library():
                 os.replace(lib, so)
         _lib = _declare(ctypes.CDLL(str(so)))
         return _lib
+
+
+def library_path() -> pathlib.Path:
+    """Where the library of the current sources is (or will be) built."""
+    return _BUILD_ROOT / source_hash() / "libmg_kernels.so"
 
 
 def check(err: int, what: str):

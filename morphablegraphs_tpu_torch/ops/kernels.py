@@ -213,6 +213,23 @@ def _atan2(y, x):
     return torch.where(y < 0, -r, r)
 
 
+def _table_search(d2: torch.Tensor, t_arc: torch.Tensor,
+                  t_valid: torch.Tensor, min_arc: torch.Tensor):
+    """One trajectory sample's masked closest-point search, in the TPU
+    kernel's two full passes: table distances d2 [C, G8, N], arcs and
+    validity [C, G8, 1], floors min_arc [C, N] -> (the least distance over
+    the valid rows at or above the floor [C, N], the smallest arc among
+    those rows within 1e-6 of it [C, N], and the rows searched [C, G8, N],
+    1 where a row is valid and at or above the floor)."""
+    inf = torch.tensor(float("inf"), device=d2.device)
+    valid = (t_arc >= min_arc[:, None, :] - 1e-6) * t_valid
+    d2m = torch.where(valid > 0, d2, inf)
+    dmin2 = d2m.amin(dim=1)  # [C, N]
+    arc_sel = torch.where(d2m <= dmin2[:, None, :] + 1e-6, t_arc,
+                          inf).amin(dim=1)
+    return dmin2, arc_sel, valid
+
+
 def _loco_score_body(frames: torch.Tensor, table: torch.Tensor,
                      cfg: torch.Tensor):
     """The TPU kernel body on evaluated rows frames [C, N_EVAL*CH(+ee), N]
@@ -260,7 +277,6 @@ def _loco_score_body(frames: torch.Tensor, table: torch.Tensor,
     t_arc = table[:, :, 3:4]  # [C, G8, 1]
     t_valid = table[:, :, 4:5]
     t_norm2 = torch.sum(t_pts * t_pts, dim=2, keepdim=True)
-    inf = torch.tensor(float("inf"), device=frames.device)
     min_arc = p(18).expand(-1, n)
     traj_sum = torch.zeros_like(kf_err)
     for f in range(2, 2 + TRAJ_SAMPLES):
@@ -270,11 +286,7 @@ def _loco_score_body(frames: torch.Tensor, table: torch.Tensor,
         cross = torch.bmm(t_pts, torch.stack([pxm, pym, pzm], dim=1))
         d2 = t_norm2 - 2.0 * cross + (pxm * pxm + pym * pym
                                       + pzm * pzm)[:, None, :]
-        valid = (t_arc >= min_arc[:, None, :] - 1e-6) * t_valid
-        d2m = torch.where(valid > 0, d2, inf)
-        dmin2 = d2m.amin(dim=1)  # [C, N]
-        arc_sel = torch.where(d2m <= dmin2[:, None, :] + 1e-6, t_arc,
-                              inf).amin(dim=1)
+        dmin2, arc_sel, valid = _table_search(d2, t_arc, t_valid, min_arc)
         end_d2 = (p(25) - pxm) ** 2 + (p(26) - pym) ** 2 + (p(27) - pzm) ** 2
         any_valid = valid.amax(dim=1) > 0
         dmin2 = torch.where(any_valid, dmin2, end_d2)
@@ -360,6 +372,49 @@ def _check_cuda(name, *tensors):
                              f"float32 tensor on {dev}")
 
 
+# the selection kernel's grid fills the card from here: on an H100 the width
+# this picks was the fastest of the six at every batch of 8 to 256
+# characters x 128 candidates timed by chip_smoke.py, and 1 lane at 1024
+MIN_WARPS_PER_SM = 8
+
+
+def selection_lanes(c: int, n: int, n_sm: int) -> int:
+    """Lanes per candidate of the selection kernel (1, 2, ..., 32): the
+    fewest whose grid of c*n candidates holds MIN_WARPS_PER_SM warps on each
+    of n_sm SMs (1 for a 1024 x 128 crowd, 4 for 128 x 128, 32 for 16 x 128
+    and fewer on an H100)."""
+    lanes = 1
+    while lanes < 32 and c * n * lanes < 32 * MIN_WARPS_PER_SM * n_sm:
+        lanes *= 2
+    return lanes
+
+
+def _launch_selection(mop, alphas, table, cfg, chain, lanes: int):
+    """Launch B1 (chain None) or B3 with `lanes` lanes per candidate on
+    checked CUDA inputs -> errors [C, N]."""
+    c, n, k = alphas.shape
+    out = torch.empty((c, n), dtype=torch.float32, device=mop.device)
+    if c == 0 or n == 0:
+        return out
+    lib = cuda_build.load_library()
+    with torch.cuda.device(mop.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if chain is None:
+            cuda_build.check(lib.mg_score_loco(
+                mop.data_ptr(), alphas.data_ptr(), table.data_ptr(),
+                cfg.data_ptr(), out.data_ptr(), c, n, k, table.shape[1],
+                lanes, stream), "score_locomotion_candidates launch")
+            _LAUNCHES["score_locomotion_candidates"] += 1
+        else:
+            cuda_build.check(lib.mg_score_loco_ee(
+                mop.data_ptr(), alphas.data_ptr(), table.data_ptr(),
+                cfg.data_ptr(), chain.data_ptr(), out.data_ptr(), c, n, k,
+                table.shape[1], chain.shape[0], lanes, stream),
+                "score_locomotion_candidates (ee) launch")
+            _LAUNCHES["score_locomotion_candidates_ee"] += 1
+    return out
+
+
 def score_locomotion_candidates(mop: torch.Tensor, alphas: torch.Tensor,
                                 table: torch.Tensor, cfg: torch.Tensor,
                                 chain=None) -> torch.Tensor:
@@ -369,7 +424,11 @@ def score_locomotion_candidates(mop: torch.Tensor, alphas: torch.Tensor,
     mop [C, N_EVAL*CH (+ ee_rows(L)), K+1] from `selection_operator`;
     alphas [C, N, K] with N a multiple of 128; table [C, G8, 5] from
     `pack_path_table`; cfg [C, CFG_W] from `pack_selection_cfg`; chain
-    [L, 8] from `pack_ee_chain` -> errors [C, N]."""
+    [L, 8] from `pack_ee_chain` -> errors [C, N].
+
+    Precondition of the kernel: a table's arcs never decrease over its
+    valid rows, as `pack_path_table` builds them; its searches start at
+    their floor and stop at their first hit on that account."""
     c, n, k = alphas.shape
     if n % N_BLK != 0:
         raise ValueError(f"pad candidates to a multiple of {N_BLK}")
@@ -389,26 +448,9 @@ def score_locomotion_candidates(mop: torch.Tensor, alphas: torch.Tensor,
     if mop.device.type != "cuda":
         raise ValueError(f"no kernel for device {mop.device}")
     _check_cuda("score_locomotion_candidates", mop, alphas, table, cfg)
-    out = torch.empty((c, n), dtype=torch.float32, device=mop.device)
-    if c == 0:
-        return out
-    lib = cuda_build.load_library()
-    with torch.cuda.device(mop.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if chain is None:
-            cuda_build.check(lib.mg_score_loco(
-                mop.data_ptr(), alphas.data_ptr(), table.data_ptr(),
-                cfg.data_ptr(), out.data_ptr(), c, n, k, table.shape[1],
-                stream), "score_locomotion_candidates launch")
-            _LAUNCHES["score_locomotion_candidates"] += 1
-        else:
-            cuda_build.check(lib.mg_score_loco_ee(
-                mop.data_ptr(), alphas.data_ptr(), table.data_ptr(),
-                cfg.data_ptr(), chain.data_ptr(), out.data_ptr(), c, n, k,
-                table.shape[1], chain.shape[0], stream),
-                "score_locomotion_candidates (ee) launch")
-            _LAUNCHES["score_locomotion_candidates_ee"] += 1
-    return out
+    n_sm = torch.cuda.get_device_properties(mop.device).multi_processor_count
+    return _launch_selection(mop, alphas, table, cfg, chain,
+                             selection_lanes(c, n, n_sm))
 
 
 # ---------------------------------------------------------------------------

@@ -50,14 +50,20 @@ def _is_batchable(parsed, root_joint: str) -> bool:
 
 class BatchedGenerator:
     """Collects parsed locomotion requests and synthesizes them in one
-    crowd walk on `device`."""
+    crowd walk on `device`: the CUDA device unless the caller names
+    another (device="cpu" runs the kernels' twins).  Without a card the
+    default raises."""
 
     def __init__(self, graph: MotionStateGraph, config: Optional[dict] = None,
                  n_steps: int = 12, n_samples: int = 64,
                  max_step_frames: int = 64, lm_iters: int = 3,
                  device=None):
         self.graph = graph
-        self.device = torch.device(device or "cpu")
+        self.device = torch.device(device or "cuda")
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("BatchedGenerator runs on a CUDA device and "
+                               "none is available; pass device='cpu' to "
+                               "run on the CPU")
         self.stacked = stack_graph(graph, device=self.device)
         self.config = config or default_config()
         self.n_steps = n_steps

@@ -166,6 +166,45 @@ def test_ee_score_kernel_matches_twin(cuda):
 
 
 @pytest.mark.cuda
+def test_score_kernel_layouts_agree(cuda):
+    """B1 and B3 give the same bits at every lanes-per-candidate layout
+    (1 to 32 lanes a candidate) as at the layout the wrapper picks."""
+    mop, alphas, table, cfg, chain = _ee_inputs(cuda, n_chars=16)
+    base = mop[:, : kernels.N_EVAL * kernels.CH].contiguous()
+    for m, ch in ((base, None), (mop, chain)):
+        ref = kernels.score_locomotion_candidates(m, alphas, table, cfg,
+                                                  chain=ch)
+        for lanes in (1, 2, 4, 8, 16, 32):
+            out = kernels._launch_selection(m, alphas, table, cfg, ch, lanes)
+            assert torch.equal(out, ref), lanes
+
+
+@pytest.mark.cuda
+def test_score_kernel_long_latents(cuda):
+    """More than the 32 latent coefficients a thread keeps in registers:
+    15 zero operator columns inserted before the mean column leave every
+    fmaf chain, and so every B1/B3 score, with the bits of the K = 25
+    inputs."""
+    mop, alphas, table, cfg, chain = _ee_inputs(cuda, n_chars=16)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    extra = torch.randn(alphas.shape[:2] + (15,), generator=gen,
+                        device=cuda)
+    long_alphas = torch.cat([alphas, extra], dim=2).contiguous()
+    zeros = torch.zeros(mop.shape[:2] + (15,), device=cuda)
+    long_mop = torch.cat([mop[..., :-1], zeros, mop[..., -1:]],
+                         dim=2).contiguous()
+    rows = kernels.N_EVAL * kernels.CH
+    for m, lm, ch in ((mop[:, :rows].contiguous(),
+                       long_mop[:, :rows].contiguous(), None),
+                      (mop, long_mop, chain)):
+        out = kernels.score_locomotion_candidates(m, alphas, table, cfg,
+                                                  chain=ch)
+        long_out = kernels.score_locomotion_candidates(
+            lm, long_alphas, table, cfg, chain=ch)
+        assert torch.equal(long_out, out)
+
+
+@pytest.mark.cuda
 def test_lm_delta_kernel_matches_twin(cuda):
     """B4 against its twin at the main path's [1024, 49, 28] with lambda over
     1e-3..10 and radii over 0.1..4 (atol 2e-4, rtol 2e-3, the crowd-solve

@@ -310,7 +310,8 @@ def test_serving_runs_the_exact_lm_as_jax(monkeypatch):
     graph = gt.build_graph_from_dict(synt.make_graph_dict())
     graph.skeleton, _ = skt.load_bvh(synt.TEST_BVH)
     bg = batch_mod.BatchedGenerator(graph, n_steps=N_STEPS, n_samples=40,
-                                    max_step_frames=MAX_FRAMES, lm_iters=3)
+                                    max_step_frames=MAX_FRAMES, lm_iters=3,
+                                    device="cpu")
     cfg = bg.walk_config()
     assert cfg.n_samples == 128 and not cfg.lm_frozen
     assert cfg.pallas_ee is None and not cfg.lm_fused_step

@@ -169,7 +169,7 @@ def test_batched_generator_answers_requests():
     for distinct trajectories."""
     graph = gt.build_graph_from_dict(synt.make_graph_dict())
     graph.skeleton, _ = skt.load_bvh(synt.TEST_BVH)
-    bg = BatchedGenerator(graph, n_steps=6, n_samples=16)
+    bg = BatchedGenerator(graph, n_steps=6, n_samples=16, device="cpu")
     assert bg.n_samples == 128
     reqs = [_traj_request(20, 100), _traj_request(-20, 100),
             _traj_request(0, 120)]
@@ -181,3 +181,18 @@ def test_batched_generator_answers_requests():
         assert frames.shape[0] > 30
         assert np.all(np.isfinite(frames))
     assert np.std([f[-1][0] for f in outs]) > 3.0
+
+
+def test_batched_generator_defaults_to_the_card():
+    """Without `device` the serving entry point runs on the CUDA device,
+    and raises where there is none; device="cpu" asks for the CPU."""
+    graph = gt.build_graph_from_dict(synt.make_graph_dict())
+    graph.skeleton, _ = skt.load_bvh(synt.TEST_BVH)
+    if torch.cuda.is_available():
+        assert BatchedGenerator(graph).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            BatchedGenerator(graph)
+    bg = BatchedGenerator(graph, device="cpu")
+    assert bg.device == torch.device("cpu")
+    assert bg.stacked.eigen_s.device == torch.device("cpu")
