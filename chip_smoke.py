@@ -7,28 +7,33 @@ Phases, one line each (or a few):
   1. the CUDA device, and the card's name and power limit from nvidia-smi;
   2. the kernel build (one nvcc per source, sm_90a) and its seconds, and
      the registers and local memory (spills) cuobjdump reads from the
-     library for each instance of the selection kernels B1/B3;
+     library for each instance of every kernel;
   3. kernel B1 (locomotion candidate scoring) against its plain PyTorch twin
      at the crowd shapes (1024 characters x 128 candidates, arc tables of
      264 and 1008 rows) and at the serving batch's (8 x 128, 1008 rows),
-     with CUDA-event times of both, the kernel's bound and its share of it;
-     then B1's time at every lanes-per-candidate layout at those shapes and
-     at batches of 16 to 256 characters (1008 rows), beside the layout the
-     wrapper picks;
-  4. kernel B2 (crowd Cholesky solve) against its twin at [1024, 28, 28],
-     beside torch.linalg.solve_ex on the same systems;
+     with the kernel's device time (`device_ms`: its own mean duration in a
+     torch.profiler trace; shares of bound and the JSON line use it), the
+     CUDA-event time around its wrapper (`kernel_ms`, which holds the
+     wrapper's host cost) and around the twin, the kernel's bound and its
+     share of it (every kernel phase prints both times); then B1's time at
+     every lanes-per-candidate layout at those shapes and at batches of 16
+     to 256 characters (1008 rows), beside the layout the wrapper picks;
+  4. kernel B2 (crowd Cholesky solve) against its twin at [1024, 28, 28]
+     and at the serving batch's [8, 28, 28], beside torch.linalg.solve_ex
+     on the same systems;
   5. kernel B3 (B1 plus a RightHand end-effector keyframe) against its twin
      at the same three shapes, and on a chain with a fixed, rest-rotated
      joint;
   6. kernel B4 (the fused LM step) against its twin at [1024, 49, 28];
   7. kernel B5 (the GMM log-likelihood and its gradient) against its twins
-     at [1024 rows over all nodes, K 5, D 28];
+     at [1024 rows over all nodes, K 5, D 28] and at 8 rows, with and
+     without its gradient pass;
   8. kernel B6 (the crowd back-projection) against its twin at [1024
      characters over all nodes, T 160, n_basis 16, n_dim 79, K 25] with
      time-warped bases, and at the TPU kernel's shared-operand signature;
   9. the serving entry point, BatchedGenerator on the reference-scale model,
-     answers 8 trajectory requests with the exact LM; B1, B2 and B6 must
-     have launched;
+     answers 8 trajectory requests with the exact LM; B1, B2, B5 and B6
+     must have launched;
  10. small walks on the GPU path against the same walks on the CPU path
      (the kernels' twins) with the same random draws: root-only without
      and with the frozen LM, the ee walk, the exact-LM walk, the ee walk
@@ -44,12 +49,17 @@ Phases, one line each (or a few):
      random_walk_segments, 160 frames a step) and in the concatenating
      form, with the random walk's largest root seam jump beside the numpy
      reference concatenation's (tests/reference_oracle.py);
- 12. one more root-only, ee and config-5 crowd run under torch.profiler:
-     device busy and idle share, time per walk stage, the top kernels and
-     each of the port's kernels (launched through ctypes, so no walk stage's
-     device time counts them).
+ 12. one more root-only, ee, lm_exact and config-5 crowd run under
+     torch.profiler: device busy and idle share, time per walk stage, the
+     top kernels and each of the port's kernels (launched through ctypes,
+     so no walk stage's device time counts them).
+The checks of phases 3-8 run first, but their lines are printed after phase
+11: a kernel's device time comes from a profiler trace, and a process that
+has taken one pays more host time per launch afterwards, so the traces wait
+until the host-timed phases (9-11) are over.
 Then a JSON line of per-kernel results (time, launches, error against the
-twin, the bound and the one-call library time where there is one), and as
+twin, the bound and the one-call library time where there is one; `ms` is
+the device time, `kernel_ms` the events around the wrapper), and as
 the last line {"ok": true, "device": {...}}.  Any failed check exits
 nonzero; without a CUDA device the script fails before it prints any
 result.
@@ -111,6 +121,9 @@ def _nvidia_smi() -> str:
 
 
 def _time_ms(fn, reps: int) -> float:
+    """CUDA events around `reps` back-to-back calls: the larger of the
+    device's and the host's time per call (a wrapper costs 10-70 us of
+    Python, more than some of the kernels run)."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -122,6 +135,84 @@ def _time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+PORT_KERNELS = ("score_loco_kernel", "chol_solve_kernel",
+                "chol_solve_smem_kernel", "lm_delta_kernel",
+                "gmm_scores_kernel", "back_project_kernel")
+_PORT_KERNEL_RE = re.compile(r"(\w+_kernel)(<[^(]*>)?\(")
+
+
+def _port_kernel(event_name: str):
+    """The port's kernel a device event belongs to (with its template
+    arguments), or None."""
+    m = _PORT_KERNEL_RE.search(event_name)
+    if m and m.group(1) in PORT_KERNELS:
+        return m.group(0)[:-1]
+    return None
+
+
+def _device_ms(fn, reps: int, ours: bool = True) -> float:
+    """Device time per call of `fn` from a torch.profiler trace of `reps`
+    calls: the mean duration of the port's own kernel (it must be the only
+    one of the port's that fn launches, once a call), or with ours=False
+    the sum of every kernel fn launches.  Unlike `_time_ms` it holds no
+    host time.  A trace may miss the first launches after it starts (seen
+    in the 8th trace of a process: 9 of 20 recorded), so the mean is taken
+    over the launches it holds; if it holds none, a second trace is tried
+    before failing."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    cuda = torch.autograd.DeviceType.CUDA
+    fn()
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == cuda]
+        if ours:
+            events = [e for e in events if _port_kernel(e.name)]
+            if len({_port_kernel(e.name) for e in events}) > 1 \
+                    or len(events) > reps:
+                _fail(f"the trace holds {len(events)} launches of the "
+                      f"port's kernels for {reps} calls of one")
+        if events:
+            # ours: the mean launch; else the calls' kernels summed (a
+            # yardstick: launches the trace missed make it faster)
+            return sum(e.time_range.elapsed_us() for e in events) / (
+                len(events) if ours else reps) / 1e3
+    _fail(f"the profiler recorded no kernel of {reps} calls")
+
+
+# Kernel lines wait here for their device times: a process that has taken a
+# profiler trace pays more host time per launch afterwards (crowds timed
+# after the traces ran 20-40% slower than before them, on an H100's host),
+# so every trace is taken after the host-timed phases.
+_PENDING = []
+
+
+def _kernel_line(head: str, fn, reps: int, bound_ms: float, tail,
+                 result: dict):
+    """Time a kernel wrapper with CUDA events now (`kernel_ms`) and queue
+    its line for `_flush_kernel_lines`, which reads its device time
+    (`device_ms`) and prints `head device_ms= kernel_ms= share_of_bound=
+    tail`.  tail is the rest of the line, or a function of device_ms that
+    returns it (for checks and yardsticks that need a trace too).  result
+    gets `kernel_ms` now and `ms` (the device time) at the flush."""
+    result["kernel_ms"] = _time_ms(fn, reps)
+    _PENDING.append((head, fn, reps, bound_ms, tail, result))
+
+
+def _flush_kernel_lines():
+    for head, fn, reps, bound_ms, tail, result in _PENDING:
+        ms = result["ms"] = _device_ms(fn, reps)
+        print(f"{head} device_ms={ms:.4f} kernel_ms={result['kernel_ms']:.4f} "
+              f"share_of_bound={bound_ms / ms:.3f} "
+              + (tail(ms) if callable(tail) else tail), flush=True)
+    _PENDING.clear()
 
 
 def rand_path(rng, granularity: int, device):
@@ -316,8 +407,8 @@ def phase_selection(stacked, skel, device, ee: bool):
     LANES_BATCHES.  B3 is checked too
     on a synthetic chain whose third joint is fixed with a 90-degree rest
     rotation (the kernel must take the rest quaternion and ignore that
-    joint's operator rows).  -> (worst error, {(C, G8): (ms, twin ms,
-    bound ms, what bounds it)})."""
+    joint's operator rows).  -> (worst error, {(C, G8): the shape's results
+    for the JSON line}); the kernel lines are queued (`_kernel_line`)."""
     import torch
     from morphablegraphs_tpu_torch.ops import kernels
     tag = "B3" if ee else "B1"
@@ -349,8 +440,6 @@ def phase_selection(stacked, skel, device, ee: bool):
                 print(f"{tag} chain={chain_name} C={n_chars} G8={g8}: "
                       f"{summary}", flush=True)
                 continue
-            ms = _time_ms(lambda: kernels.score_locomotion_candidates(
-                *args, chain=ch), 20)
             plain_ms = _time_ms(
                 lambda: kernels.score_locomotion_candidates_ref(
                     *args, chain=ch), 3)
@@ -359,15 +448,19 @@ def phase_selection(stacked, skel, device, ee: bool):
             shape = (f"C={n_chars} N={alphas.shape[1]} K={alphas.shape[2]}"
                      + (f" L={ch.shape[0]} rows={mop.shape[1]}" if ee
                         else "") + f" G8={g8}")
-            print(f"{tag} score_locomotion_candidates{'(chain)' if ee else ''}"
-                  f" {label} {shape}: {summary} kernel_ms={ms:.4f} "
-                  f"share_of_bound={bound_ms / ms:.3f} (bound_ms="
-                  f"{bound_ms:.4f}, {by}; the searches read {frac:.3f} of "
-                  f"the table rows) lanes={lanes} twin_ms={plain_ms:.4f}",
-                  flush=True)
+            results[(n_chars, g8)] = dict(plain_ms=plain_ms,
+                                          bound_ms=bound_ms, bound_by=by,
+                                          library_ms=None)
+            _kernel_line(
+                f"{tag} score_locomotion_candidates{'(chain)' if ee else ''}"
+                f" {label} {shape}: {summary}",
+                lambda args=args, ch=ch: kernels.score_locomotion_candidates(
+                    *args, chain=ch), 20, bound_ms,
+                f"(bound_ms={bound_ms:.4f}, {by}; the searches read "
+                f"{frac:.3f} of the table rows) lanes={lanes} "
+                f"twin_ms={plain_ms:.4f}", results[(n_chars, g8)])
             if not ee:
                 _lanes_sweep(label, args, n_sm)
-            results[(n_chars, g8)] = (ms, plain_ms, bound_ms, by)
     if not ee:
         for n_chars in LANES_BATCHES:
             _lanes_sweep("batch", _b1_inputs(stacked, skel, n_chars, 1000,
@@ -376,42 +469,62 @@ def phase_selection(stacked, skel, device, ee: bool):
     return worst, results
 
 
+SERVING_CHARS = 8  # the serving batch of phase 9
+
+
 def phase_b2(device):
-    """B2 against its twin at [1024, 28, 28], three zero systems solving to
-    0; beside it torch.linalg.solve_ex, the one PyTorch call for the same
-    solve."""
+    """B2 against its twin at [1024, 28, 28] and at the serving batch
+    [8, 28, 28], three zero systems solving to 0; beside it
+    torch.linalg.solve_ex, the one PyTorch call for the same solve (events
+    around the call, and the device time of the kernels it launches).
+    -> the crowd shape's results."""
     import torch
     from morphablegraphs_tpu_torch.ops import kernels
     gen = torch.Generator(device=device).manual_seed(5)
-    j = torch.randn((KERNEL_CHARS, 40, 28), generator=gen, device=device)
-    a = torch.bmm(j.transpose(1, 2), j) + 0.1 * torch.eye(28, device=device)
-    g = torch.randn((KERNEL_CHARS, 28), generator=gen, device=device)
-    a[-3:] = 0.0  # padded characters: the zero system solves to 0
-    g[-3:] = 0.0
-    x_k = kernels.chol_solve(a, g)
-    x_t = kernels.chol_solve_unrolled(a, g)
-    torch.cuda.synchronize()
-    err = (x_k - x_t).abs()
-    ms = _time_ms(lambda: kernels.chol_solve(a, g), 50)
-    plain_ms = _time_ms(lambda: kernels.chol_solve_unrolled(a, g), 5)
-    # the one PyTorch call for the same solve (batched LU, no info check)
-    library_ms = _time_ms(lambda: torch.linalg.solve_ex(a, g), 50)
-    k = a.shape[-1]
-    bound_ms, by = _bound(_nbytes(a, g, x_k),
-                          KERNEL_CHARS * (k ** 3 / 3 + 2 * k * k))
-    print(f"B2 chol_solve [{KERNEL_CHARS}, 28, 28]: max_abs_err={float(err.max()):.3e} "
-          f"max_rel_err={float((err / x_t.abs().clamp(min=1e-6)).max()):.3e} "
-          f"(tol {B2_ATOL}+{B2_RTOL}*|x|) kernel_ms={ms:.4f} "
-          f"share_of_bound={bound_ms / ms:.3f} (bound_ms={bound_ms:.5f}, "
-          f"{by}) twin_ms={plain_ms:.4f} "
-          f"torch.linalg.solve_ex_ms={library_ms:.4f}", flush=True)
-    if not bool(torch.isfinite(x_k).all()) or \
-            bool((err > B2_ATOL + B2_RTOL * x_t.abs()).any()):
-        _fail("B2 disagrees with its twin")
-    if float(x_k[-3:].abs().max()) != 0.0:
-        _fail("B2: a zero system did not solve to 0")
-    return dict(max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=by, library_ms=library_ms)
+    results = {}
+    for c in (KERNEL_CHARS, SERVING_CHARS):
+        j = torch.randn((c, 40, 28), generator=gen, device=device)
+        a = torch.bmm(j.transpose(1, 2), j) + 0.1 * torch.eye(28,
+                                                              device=device)
+        g = torch.randn((c, 28), generator=gen, device=device)
+        a[-3:] = 0.0  # padded characters: the zero system solves to 0
+        g[-3:] = 0.0
+        x_k = kernels.chol_solve(a, g)
+        x_t = kernels.chol_solve_unrolled(a, g)
+        torch.cuda.synchronize()
+        err = (x_k - x_t).abs()
+        if not bool(torch.isfinite(x_k).all()) or \
+                bool((err > B2_ATOL + B2_RTOL * x_t.abs()).any()):
+            _fail("B2 disagrees with its twin")
+        if float(x_k[-3:].abs().max()) != 0.0:
+            _fail("B2: a zero system did not solve to 0")
+        plain_ms = _time_ms(lambda: kernels.chol_solve_unrolled(a, g), 5)
+        # the one PyTorch call for the same solve (batched LU, no info check)
+        library_ms = _time_ms(lambda: torch.linalg.solve_ex(a, g), 50)
+        k = a.shape[-1]
+        bound_ms, by = _bound(_nbytes(a, g, x_k),
+                              c * (k ** 3 / 3 + 2 * k * k))
+
+        def tail(ms, a=a, g=g, bound_ms=bound_ms, by=by, plain_ms=plain_ms,
+                 library_ms=library_ms):
+            library_device_ms = _device_ms(
+                lambda: torch.linalg.solve_ex(a, g), 50, ours=False)
+            if ms > library_device_ms:
+                _fail("B2 is slower than torch.linalg.solve_ex")
+            return (f"(bound_ms={bound_ms:.5f}, {by}) twin_ms={plain_ms:.4f} "
+                    f"torch.linalg.solve_ex_ms={library_ms:.4f} (its "
+                    f"kernels' device_ms={library_device_ms:.4f})")
+
+        results[c] = dict(max_abs_err=float(err.max()), plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=by,
+                          library_ms=library_ms)
+        _kernel_line(
+            f"B2 chol_solve [{c}, 28, 28]: max_abs_err={float(err.max()):.3e} "
+            f"max_rel_err={float((err / x_t.abs().clamp(min=1e-6)).max()):.3e} "
+            f"(tol {B2_ATOL}+{B2_RTOL}*|x|)",
+            lambda a=a, g=g: kernels.chol_solve(a, g), 50, bound_ms, tail,
+            results[c])
+    return results[KERNEL_CHARS]
 
 
 def phase_b4(device):
@@ -433,25 +546,26 @@ def phase_b4(device):
     d_t = kernels.lm_delta_ref(j, r, lam, rad)
     torch.cuda.synchronize()
     err = (d_k - d_t).abs()
-    ms = _time_ms(lambda: kernels.lm_delta(j, r, lam, rad), 50)
     plain_ms = _time_ms(lambda: kernels.lm_delta_ref(j, r, lam, rad), 5)
     b2_route_ms = _time_ms(lambda: lm.lm_delta(j, r, lam, rad), 50)
     # JtJ (upper triangle), Jtr, the factor and the two substitutions
     bound_ms, by = _bound(_nbytes(j, r, lam, rad, d_k), c * (
         n_res * k * (k + 1) + 2 * n_res * k + k ** 3 / 3 + 2 * k * k))
-    print(f"B4 lm_delta [{c}, {n_res}, {k}]: max_abs_err={float(err.max()):.3e} "
-          f"max_rel_err={float((err / d_t.abs().clamp(min=1e-6)).max()):.3e} "
-          f"(tol {B4_ATOL}+{B4_RTOL}*|x|) kernel_ms={ms:.4f} "
-          f"share_of_bound={bound_ms / ms:.3f} (bound_ms={bound_ms:.5f}, "
-          f"{by}) twin_ms={plain_ms:.4f} step_via_B2_ms={b2_route_ms:.4f}",
-          flush=True)
+    result = dict(max_abs_err=float(err.max()), plain_ms=plain_ms,
+                  bound_ms=bound_ms, bound_by=by, library_ms=None)
+    _kernel_line(
+        f"B4 lm_delta [{c}, {n_res}, {k}]: max_abs_err={float(err.max()):.3e} "
+        f"max_rel_err={float((err / d_t.abs().clamp(min=1e-6)).max()):.3e} "
+        f"(tol {B4_ATOL}+{B4_RTOL}*|x|)",
+        lambda: kernels.lm_delta(j, r, lam, rad), 50, bound_ms,
+        f"(bound_ms={bound_ms:.5f}, {by}) twin_ms={plain_ms:.4f} "
+        f"step_via_B2_ms={b2_route_ms:.4f}", result)
     if not bool(torch.isfinite(d_k).all()) or \
             bool((err > B4_ATOL + B4_RTOL * d_t.abs()).any()):
         _fail("B4 disagrees with its twin")
     if float(d_k[-3:].abs().max()) != 0.0:
         _fail("B4: a zero character did not give delta = 0")
-    return dict(max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=by, library_ms=None)
+    return result
 
 
 def _node_draws(stacked, n_rows, device, seed, scale=1.0):
@@ -468,45 +582,58 @@ def _node_draws(stacked, n_rows, device, seed, scale=1.0):
 
 
 def phase_b5(stacked, device):
-    """B5 against its twins at [1024, K 5, D 28]: rows over all nodes, drawn
-    from their node's mixture with the normals scaled 1.5x; log p and the
-    gradient of -log p within their bounds.  Times the value-and-gradient
-    call the LM makes."""
+    """B5 against its twins at [1024, K 5, D 28] and at the serving batch's
+    8 rows: rows over all nodes, drawn from their node's mixture with the
+    normals scaled 1.5x; log p and the gradient of -log p within their
+    bounds.  Times the value-and-gradient call the LM's linearization makes
+    and the value-only call of its probes.  -> the crowd shape's results."""
     import torch
     from morphablegraphs_tpu_torch.ops import kernels
-    node, x = _node_draws(stacked, KERNEL_CHARS, device, seed=9, scale=1.5)
-    args = (x, stacked.gmm_weights, stacked.gmm_means, stacked.gmm_prec_chol)
-    lp_k = kernels.gmm_scores(*args, mix_id=node)
-    nll_k, g_k = kernels.gmm_nll_and_grad(*args, node)
-    lp_t = kernels.gmm_scores_ref(*args, mix_id=node)
-    nll_t, g_t = kernels.gmm_nll_and_grad_ref(*args, node)
-    torch.cuda.synchronize()
-    errs = {"logp": (lp_k - lp_t).abs(), "nll": (nll_k - nll_t).abs(),
-            "grad": (g_k - g_t).abs()}
-    refs = {"logp": lp_t, "nll": nll_t, "grad": g_t}
-    ms = _time_ms(lambda: kernels.gmm_nll_and_grad(*args, node), 50)
-    plain_ms = _time_ms(lambda: kernels.gmm_nll_and_grad_ref(*args, node), 5)
-    worst = max(float(e.max()) for e in errs.values())
-    # per row and component: y = (x - mu) P, |y|^2 and the gradient P y
-    k, d = args[2].shape[1:]
-    bound_ms, by = _bound(_nbytes(*args, node, nll_k, g_k),
-                          KERNEL_CHARS * k * (4 * d * d + 3 * d))
-    print(f"B5 gmm_nll_and_grad [{KERNEL_CHARS}, K={args[1].shape[1]}, "
-          f"D={x.shape[1]}] over {stacked.n_nodes} nodes: "
-          + " ".join(f"max_abs_err_{k}={float(e.max()):.3e}"
-                     for k, e in errs.items())
-          + f" (|log p| up to {float(lp_t.abs().max()):.1f}, |grad| up to "
-          f"{float(g_t.abs().max()):.1f}; tol {B5_ATOL}+{B5_RTOL}*|x|) "
-          f"kernel_ms={ms:.4f} share_of_bound={bound_ms / ms:.3f} "
-          f"(bound_ms={bound_ms:.5f}, {by}) twin_ms={plain_ms:.4f}",
-          flush=True)
-    for k, e in errs.items():
-        if bool((e > B5_ATOL + B5_RTOL * refs[k].abs()).any()):
-            _fail(f"B5 disagrees with its twin ({k})")
-    if not all(bool(torch.isfinite(t).all()) for t in (lp_k, nll_k, g_k)):
-        _fail("B5 produced non-finite values")
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=by, library_ms=None)
+    results = {}
+    for c in (KERNEL_CHARS, SERVING_CHARS):
+        node, x = _node_draws(stacked, c, device, seed=9, scale=1.5)
+        args = (x, stacked.gmm_weights, stacked.gmm_means,
+                stacked.gmm_prec_chol)
+        lp_k = kernels.gmm_scores(*args, mix_id=node)
+        nll_k, g_k = kernels.gmm_nll_and_grad(*args, node)
+        lp_t = kernels.gmm_scores_ref(*args, mix_id=node)
+        nll_t, g_t = kernels.gmm_nll_and_grad_ref(*args, node)
+        torch.cuda.synchronize()
+        errs = {"logp": (lp_k - lp_t).abs(), "nll": (nll_k - nll_t).abs(),
+                "grad": (g_k - g_t).abs()}
+        refs = {"logp": lp_t, "nll": nll_t, "grad": g_t}
+        plain_ms = _time_ms(lambda: kernels.gmm_nll_and_grad_ref(*args, node),
+                            5)
+        worst = max(float(e.max()) for e in errs.values())
+        # per row and component: y = (x - mu) P, |y|^2 and the gradient P y
+        k, d = args[2].shape[1:]
+        bound_ms, by = _bound(_nbytes(*args, node, nll_k, g_k),
+                              c * k * (4 * d * d + 3 * d))
+
+        def tail(ms, args=args, node=node, bound_ms=bound_ms, by=by,
+                 plain_ms=plain_ms):
+            value_ms = _device_ms(
+                lambda: kernels.gmm_scores(*args, mix_id=node), 50)
+            return (f"(bound_ms={bound_ms:.5f}, {by}; device_ms without the "
+                    f"gradient pass {value_ms:.4f}) twin_ms={plain_ms:.4f}")
+
+        results[c] = dict(max_abs_err=worst, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=by, library_ms=None)
+        _kernel_line(
+            f"B5 gmm_nll_and_grad [{c}, K={k}, D={d}] over "
+            f"{stacked.n_nodes} nodes: "
+            + " ".join(f"max_abs_err_{n}={float(e.max()):.3e}"
+                       for n, e in errs.items())
+            + f" (|log p| up to {float(lp_t.abs().max()):.1f}, |grad| up to "
+            f"{float(g_t.abs().max()):.1f}; tol {B5_ATOL}+{B5_RTOL}*|x|)",
+            lambda args=args, node=node: kernels.gmm_nll_and_grad(*args, node),
+            50, bound_ms, tail, results[c])
+        for n, e in errs.items():
+            if bool((e > B5_ATOL + B5_RTOL * refs[n].abs()).any()):
+                _fail(f"B5 disagrees with its twin ({n})")
+        if not all(bool(torch.isfinite(t).all()) for t in (lp_k, nll_k, g_k)):
+            _fail("B5 produced non-finite values")
+    return results[KERNEL_CHARS]
 
 
 def phase_b6(stacked, device):
@@ -531,8 +658,6 @@ def phase_b6(stacked, device):
         out_t = kernels.crowd_back_project_ref(a, e, m, b, mix_id=mix)
         torch.cuda.synchronize()
         err = (out_k - out_t).abs()
-        ms = _time_ms(lambda: kernels.crowd_back_project(a, e, m, b,
-                                                          mix_id=mix), 50)
         plain_ms = _time_ms(lambda: kernels.crowd_back_project_ref(
             a, e, m, b, mix_id=mix), 5)
         t, nb = b.shape[-2:]
@@ -540,22 +665,26 @@ def phase_b6(stacked, device):
         bound_ms, by = _bound(
             _nbytes(a, e, m, b, out_k, *(() if mix is None else (mix,))),
             KERNEL_CHARS * (2 * nb * nd * a.shape[1] + 2 * t * nb * nd))
-        print(f"B6 crowd_back_project ({label}) [{KERNEL_CHARS}, T="
-              f"{b.shape[-2]}, n_basis={b.shape[-1]}, n_dim="
-              f"{out_k.shape[-1]}, K={a.shape[1]}]: max_abs_err="
-              f"{float(err.max()):.3e} (|x| up to "
-              f"{float(out_t.abs().max()):.1f}; tol {B6_ATOL}+{B6_RTOL}*|x|) "
-              f"kernel_ms={ms:.4f} share_of_bound={bound_ms / ms:.3f} "
-              f"(bound_ms={bound_ms:.5f}, {by}) twin_ms={plain_ms:.4f} "
-              f"({out_k.numel() * 4 / ms / 1e6:.0f} GB/s of output)",
-              flush=True)
+        times[label] = dict(plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=by, library_ms=None)
+        _kernel_line(
+            f"B6 crowd_back_project ({label}) [{KERNEL_CHARS}, T="
+            f"{b.shape[-2]}, n_basis={b.shape[-1]}, n_dim="
+            f"{out_k.shape[-1]}, K={a.shape[1]}]: max_abs_err="
+            f"{float(err.max()):.3e} (|x| up to "
+            f"{float(out_t.abs().max()):.1f}; tol {B6_ATOL}+{B6_RTOL}*|x|)",
+            lambda a=a, e=e, m=m, b=b, mix=mix: kernels.crowd_back_project(
+                a, e, m, b, mix_id=mix), 50, bound_ms,
+            lambda ms, n=out_k.numel(), bound_ms=bound_ms, by=by,
+            plain_ms=plain_ms: (
+                f"(bound_ms={bound_ms:.5f}, {by}) twin_ms={plain_ms:.4f} "
+                f"({n * 4 / ms / 1e6:.0f} GB/s of output)"), times[label])
         if not bool(torch.isfinite(out_k).all()) or \
                 bool((err > B6_ATOL + B6_RTOL * out_t.abs()).any()):
             _fail(f"B6 ({label}) disagrees with its twin")
         worst = max(worst, float(err.max()))
-        times[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=by, library_ms=None)
-    return dict(max_abs_err=worst, **times["gathered"])
+    times["gathered"]["max_abs_err"] = worst
+    return times["gathered"]
 
 
 def _traj_request(end_x, end_z):
@@ -600,8 +729,9 @@ def phase_serve(graph, device):
     if not finite or min(n_frames) <= 30:
         _fail("serving output is not finite or too short")
     if any(counts[k] <= 0 for k in ("score_locomotion_candidates",
-                                    "chol_solve", "crowd_back_project")):
-        _fail("serving did not launch B1, B2 and B6")
+                                    "chol_solve", "gmm_scores",
+                                    "crowd_back_project")):
+        _fail("serving did not launch B1, B2, B5 and B6")
     return counts
 
 
@@ -617,8 +747,8 @@ WALKS = {
     "ee_exact": (dict(pallas_ee=EE_JOINT, lm_frozen=False), True),
 }
 # kernels each walk must launch (> 0) and must not launch (== 0): every
-# walk back-projects through B6; the closed frozen LM takes its GMM term
-# from B5, the exact LM evaluates it under forward mode in plain PyTorch
+# walk back-projects through B6 and takes its LM's GMM term from B5 (the
+# closed frozen LM directly, the exact LM through `kernels.gmm_nll`)
 WALK_KERNELS = {
     "root": (("score_locomotion_candidates", "chol_solve", "gmm_scores",
               "crowd_back_project"), ("lm_delta",)),
@@ -626,10 +756,10 @@ WALK_KERNELS = {
             "crowd_back_project"), ("lm_delta",)),
     "ee_fused": (("score_locomotion_candidates_ee", "lm_delta", "gmm_scores",
                   "crowd_back_project"), ("chol_solve",)),
-    "lm_exact": (("score_locomotion_candidates", "chol_solve",
-                  "crowd_back_project"), ("lm_delta", "gmm_scores")),
+    "lm_exact": (("score_locomotion_candidates", "chol_solve", "gmm_scores",
+                  "crowd_back_project"), ("lm_delta",)),
     "ee_exact": (("score_locomotion_candidates_ee", "chol_solve",
-                  "crowd_back_project"), ("lm_delta", "gmm_scores")),
+                  "gmm_scores", "crowd_back_project"), ("lm_delta",)),
 }
 
 
@@ -960,10 +1090,6 @@ def phase_random_crowd(name, stacked, device, card: str, reps: int = 3):
     return float(np.median(times)), fps, launches, run
 
 
-PORT_KERNELS = ("score_loco_kernel", "chol_solve_kernel", "lm_delta_kernel",
-                "gmm_scores_kernel", "back_project_kernel")
-
-
 def phase_profile(name, run, crowd_seconds: float):
     """One more crowd run under torch.profiler: device busy time from the
     CUDA kernel events, CPU / device time per walk stage (the walk.*
@@ -1001,11 +1127,10 @@ def phase_profile(name, run, crowd_seconds: float):
             + e.time_range.elapsed_us() / 1e3
         # the port's kernels: launched through ctypes, outside any torch
         # op, so no walk.* range's device busy time counts them
-        m = re.search(r"(\w+_kernel)(<[^(]*>)?\(", e.name)
-        if m and m.group(1) in PORT_KERNELS:
-            ms, count = ours.get(m.group(0)[:-1], (0.0, 0))
-            ours[m.group(0)[:-1]] = (ms + e.time_range.elapsed_us() / 1e3,
-                                     count + 1)
+        port = _port_kernel(e.name)
+        if port:
+            ms, count = ours.get(port, (0.0, 0))
+            ours[port] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]
     print(f"profile {name}: one crowd run, {len(kernel_events)} kernel "
           f"launches, "
@@ -1025,9 +1150,9 @@ def phase_profile(name, run, crowd_seconds: float):
 
 
 def _resource_usage():
-    """Registers and local memory (spills) of each instance of the
-    selection kernel, as cuobjdump reads them from the built library ->
-    one summary per instance."""
+    """Registers, stack and local memory (spills) of the port's kernels, as
+    cuobjdump reads them from the built library -> (one summary per
+    instance of the selection kernels, one per instance of the others)."""
     from morphablegraphs_tpu_torch.ops import cuda_build
     tool = pathlib.Path(cuda_build._nvcc()).with_name("cuobjdump")
     out = subprocess.run([str(tool), "--dump-resource-usage",
@@ -1035,14 +1160,21 @@ def _resource_usage():
                          capture_output=True, text=True, timeout=120)
     if out.returncode != 0:
         _fail(f"cuobjdump: {out.stderr.strip()}")
-    found = [f"{'B3' if m.group(1) == '1' else 'B1'} lanes {m.group(2)}: "
-             f"{m.group(3)} registers, {m.group(4)} B local"
-             for m in re.finditer(r"score_loco_kernelILb([01])ELi(\d+)E\S*:"
-                                  r"\s+REG:(\d+) STACK:\d+ SHARED:\d+ "
-                                  r"LOCAL:(\d+)", out.stdout)]
-    if not found:
-        _fail("cuobjdump lists no instance of the selection kernel")
-    return found
+    usage = r"\S*:\s+REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)"
+    selection = [f"{'B3' if m.group(1) == '1' else 'B1'} lanes {m.group(2)}: "
+                 f"{m.group(3)} registers, {m.group(5)} B local"
+                 for m in re.finditer(r"score_loco_kernelILb([01])ELi(\d+)E"
+                                      + usage, out.stdout)]
+    others = [f"{m.group(1)}{'<' + m.group(3) + '>' if m.group(3) else ''}: "
+              f"{m.group(4)} registers, {m.group(5)} B stack, {m.group(6)} B "
+              "local"
+              for m in re.finditer(r"\d(chol_solve_kernel|"
+                                   r"chol_solve_smem_kernel|lm_delta_kernel|"
+                                   r"gmm_scores_kernel|back_project_kernel)"
+                                   r"(ILi(\d+)E)?" + usage, out.stdout)]
+    if not selection or len(others) < 7:
+        _fail("cuobjdump does not list every kernel of the port")
+    return selection, others
 
 
 def main():
@@ -1063,7 +1195,9 @@ def main():
     cuda_build.load_library()
     print(f"build: kernels built and loaded in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    print("resources of score_loco.cu: " + "; ".join(_resource_usage()),
+    selection, others = _resource_usage()
+    print("resources of score_loco.cu: " + "; ".join(selection), flush=True)
+    print("resources of the other kernels: " + "; ".join(sorted(others)),
           flush=True)
 
     graph, stacked = _ref_model(device)
@@ -1078,9 +1212,8 @@ def main():
     for name, err, times in (
             ("score_locomotion_candidates", b1_err, b1_times),
             ("score_locomotion_candidates_ee", b3_err, b3_times)):
-        ms, plain_ms, bound_ms, by = times[(KERNEL_CHARS, 264)]
-        res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=by, library_ms=None)
+        res[name] = times[(KERNEL_CHARS, 264)]  # `ms` arrives at the flush
+        res[name]["max_abs_err"] = err
 
     serve_counts = phase_serve(graph, device)
     phase_reference(stacked, skel)
@@ -1093,7 +1226,8 @@ def main():
           flush=True)
     randoms = {name: phase_random_crowd(name, stacked, device, smi)
                for name in ("segments", "concat")}
-    for name in ("root", "ee"):
+    _flush_kernel_lines()
+    for name in ("root", "ee", "lm_exact"):
         phase_profile(name, crowds[name][4], crowds[name][0])
     phase_profile("random segments (config 5)", randoms["segments"][3],
                   randoms["segments"][0])

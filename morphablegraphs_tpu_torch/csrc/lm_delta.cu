@@ -16,7 +16,9 @@
 // and lets the lanes share the k(k+1)/2 upper-triangle (i, j) pairs of JtJ
 // (13 pairs a lane at k = 28) and the k entries of Jt r, each a dot product
 // over the R staged rows.  Nothing of the [C, k, k] normal matrix touches
-// device memory.
+// device memory.  For k <= 32 the solve is kernel B2's register routine
+// (one matrix row a lane, read once from the staged JtJ); a wider system
+// keeps the shared-memory routine.
 
 #include <cuda_runtime.h>
 
@@ -25,12 +27,6 @@
 namespace {
 
 constexpr int WARPS = 4;
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
 
 __global__ void lm_delta_kernel(const float* __restrict__ jac,
                                 const float* __restrict__ res,
@@ -79,7 +75,7 @@ __global__ void lm_delta_kernel(const float* __restrict__ jac,
   // Marquardt damping with the relative floor
   float dmax = -__int_as_float(0x7f800000);
   for (int i = lane; i < k; i += 32) dmax = fmaxf(dmax, A[i * k + i]);
-  const float floor_v = fmaxf(damp_floor_rel * warp_max(dmax), 1e-6f);
+  const float floor_v = fmaxf(damp_floor_rel * mg::warp_max(dmax), 1e-6f);
   const float lam_c = lam[ch];
   for (int i = lane; i < k; i += 32) {
     const float dg = A[i * k + i];
@@ -87,9 +83,17 @@ __global__ void lm_delta_kernel(const float* __restrict__ jac,
   }
   __syncwarp();
 
+  // the solve, then the trust-region clip
+  if (k <= 32) {
+    const float xi =
+        k <= 28 ? mg::warp_chol_solve_rows<28>(A, g, k, lane, false)
+                : mg::warp_chol_solve_rows<32>(A, g, k, lane, false);
+    const float nrm = sqrtf(fmaxf(mg::warp_sum(xi * xi), 1e-20f));
+    const float scale = fminf(1.f, radius[ch] / fmaxf(nrm, 1e-10f));
+    if (lane < k) out[(size_t)ch * k + lane] = xi * scale;
+    return;
+  }
   mg::warp_chol_solve(A, g, y, x, k, lane);
-
-  // trust-region clip
   float part = 0.f;
   for (int i = lane; i < k; i += 32) part += x[i] * x[i];
   const float nrm = sqrtf(fmaxf(mg::warp_sum(part), 1e-20f));

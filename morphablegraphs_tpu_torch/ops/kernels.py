@@ -9,9 +9,10 @@
 * B2 `chol_solve` (csrc/chol_solve.cu): the crowd's batched SPD solve.
 * B4 `lm_delta` (csrc/lm_delta.cu): the whole LM step block (JtJ, Jtr,
   Marquardt damping, Cholesky, trust clip) in one kernel.
-* B5 `gmm_scores` / `gmm_nll_and_grad` (csrc/gmm_scores.cu): the mixture
-  log-likelihood of each row under its own mixture, with the gradient of
-  -log p in the same pass (the LM's naturalness term).
+* B5 `gmm_scores` / `gmm_nll_and_grad` / `gmm_nll` (csrc/gmm_scores.cu): the
+  mixture log-likelihood of each row under its own mixture, with the
+  gradient of -log p in the same pass (the LM's naturalness term);
+  `gmm_nll` is the form the exact LM differentiates.
 * B6 `crowd_back_project` (csrc/back_project.cu): fPCA back-projection and
   B-spline evaluation of every character's latent (each walk step's
   frames).
@@ -571,7 +572,7 @@ def lm_delta(j: torch.Tensor, r: torch.Tensor, lam: torch.Tensor,
 # B5: mixture log-likelihood (and its gradient) per row
 # ---------------------------------------------------------------------------
 
-GMM_MAX_DIM = 64  # kernel B5: lanes loop over at most two columns each
+GMM_MAX_DIM = 64  # kernel B5: a lane holds at most two columns
 
 
 def _mixture_rows(x, weights, means, prec_chol, mix_id):
@@ -662,6 +663,57 @@ def gmm_nll_and_grad(x: torch.Tensor, weights: torch.Tensor,
         raise ValueError(f"no kernel for device {x.device}")
     logp, grad = _launch_gmm(x, weights, means, prec_chol, mix_id, True)
     return -logp, grad
+
+
+class _GmmNll(torch.autograd.Function):
+    """-log p of each row with its derivative in x taken from kernel B5's
+    gradient: `forward` is `gmm_nll_and_grad` (one launch on a CUDA tensor,
+    the twin on a CPU tensor); `jvp` and `backward` are tensor expressions
+    of the saved gradient, as the TPU kernel has no derivative kernel
+    either.  Only x is differentiable, and only once (the LM is
+    Gauss-Newton)."""
+
+    @staticmethod
+    def forward(x, weights, means, prec_chol, mix_id):
+        # the launch reads data_ptr(): x must be the rows themselves, not a
+        # tensor wrapped by a torch.func transform
+        if torch._C._functorch.is_functorch_wrapped_tensor(x):
+            raise RuntimeError("gmm_nll: x reached the kernel wrapped by a "
+                               "torch.func transform")
+        return gmm_nll_and_grad(x, weights, means, prec_chol, mix_id)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        grad = output[1]
+        ctx.mark_non_differentiable(grad)
+        ctx.save_for_backward(grad)
+        ctx.save_for_forward(grad)
+
+    @staticmethod
+    def backward(ctx, g_nll, _g_grad):
+        grad, = ctx.saved_tensors
+        return g_nll[:, None] * grad, None, None, None, None
+
+    @staticmethod
+    def jvp(ctx, x_t, *_):
+        grad, = ctx.saved_tensors
+        return (grad * x_t).sum(-1), None
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        raise RuntimeError(
+            "gmm_nll cannot be vmapped over its inputs: the kernel takes the "
+            "crowd's rows as one [C, D] tensor (vmap the tangent of a jvp, "
+            "as lm.linearize does, not x)")
+
+
+def gmm_nll(x: torch.Tensor, weights: torch.Tensor, means: torch.Tensor,
+            prec_chol: torch.Tensor, mix_id: torch.Tensor) -> torch.Tensor:
+    """-log p [C] of each row x[c] under stacked mixture mix_id[c],
+    differentiable in x (forward mode under `lm.linearize`, and reverse
+    mode): one launch of kernel B5 gives the value and, through the saved
+    gradient, every jacobian column."""
+    return _GmmNll.apply(x, weights, means, prec_chol, mix_id)[0]
 
 
 # ---------------------------------------------------------------------------

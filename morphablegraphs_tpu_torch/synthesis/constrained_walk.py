@@ -14,9 +14,10 @@ over `full_walk_step`.  Per step and character:
      kept only if the exact error improves: the exact LM by default, or the
      frozen-correspondence LM (closed form or linearize form).  The normal
      equations of the whole crowd go through kernel B2, or the whole step
-     block through kernel B4; the closed frozen form takes its GMM
-     naturalness term and gradient from kernel B5.  The JAX lax.cond gate
-     is a masked select per character, as under vmap;
+     block through kernel B4; every LM form takes its GMM naturalness
+     term from kernel B5 (the closed frozen form its gradient too, the
+     exact and linearize forms through `kernels.gmm_nll`).  The JAX
+     lax.cond gate is a masked select per character, as under vmap;
   4. the winner is back-projected with time warping (kernel B6), aligned
      and seam-smoothed, the travelled arc advances, and the next node is
      drawn.
@@ -37,7 +38,7 @@ from ..constraints import compiled
 from ..models.graph import (NODE_TYPE_END, NODE_TYPE_IDS, NODE_TYPE_STANDARD,
                             StackedGraph, TRANSITION_TYPE_IDS)
 from ..models.skeleton import Skeleton
-from ..ops import align, gmm as gmm_ops, kernels, lm, quat, spline_path
+from ..ops import align, kernels, lm, quat, spline_path
 from . import walk as walk_mod
 
 
@@ -164,9 +165,12 @@ def step_constraints(step_scs, step_idx: int, n_chars: int,
     return compiled.StepConstraints(**kw)
 
 
-def _node_gmm(g: StackedGraph, node_id: torch.Tensor) -> gmm_ops.GMM:
-    return gmm_ops.GMM(g.gmm_weights[node_id], g.gmm_means[node_id],
-                       g.gmm_cov_chol[node_id], g.gmm_prec_chol[node_id])
+def _gmm_nll(g: StackedGraph, node_id: torch.Tensor,
+             s: torch.Tensor) -> torch.Tensor:
+    """-log p [C] of latents s [C, L] under each character's node mixture
+    (kernel B5 on a CUDA device), differentiable in s."""
+    return kernels.gmm_nll(s, g.gmm_weights, g.gmm_means, g.gmm_prec_chol,
+                           node_id)
 
 
 def _aligned_coeffs(g: StackedGraph, node_id, sc, s, root_only: bool = True):
@@ -240,16 +244,17 @@ def lm_residual_fn(skeleton: Skeleton, g: StackedGraph, node_id, sc,
                    root_only: bool):
     """The exact LM's residual function s [C, L] -> [C, R]: the masked
     constraint residuals plus the GMM naturalness term -log p(s), as JAX
-    constrained_walk_full's `residuals`."""
-    gmm = _node_gmm(g, node_id)
+    constrained_walk_full's `residuals`.  The GMM term is `kernels.gmm_nll`:
+    one launch of kernel B5 per evaluation, whose gradient gives all the
+    jacobian columns of the term under `lm.linearize`."""
     act = _lm_mask(sc)
 
     def residuals(sv):
         r = compiled.residuals_from_coeffs(
             skeleton, g.knots_s[node_id], sc,
             _aligned_coeffs(g, node_id, sc, sv, root_only), root_only)
-        return act * (ERROR_SCALE * r
-                      - QUALITY_SCALE * gmm_ops.log_prob(gmm, sv)[:, None])
+        return act * (ERROR_SCALE * r + QUALITY_SCALE * _gmm_nll(
+            g, node_id, sv)[:, None])
 
     return residuals
 
@@ -279,21 +284,20 @@ def _refine(skeleton, g, node_id, sc, s0, e0, cfg: WalkConfig,
                 *args, ee_node=ee_idx)
             n_lat = s0.shape[1]
 
-            def nll_and_grad(x):  # kernel B5 on a CUDA device
-                return kernels.gmm_nll_and_grad(
-                    x, g.gmm_weights, g.gmm_means, g.gmm_prec_chol, node_id)
+            tables = (g.gmm_weights, g.gmm_means, g.gmm_prec_chol)
 
             def make_vj(sv):
                 r_raw, j_raw, vfn = raw_make(sv)
-                nll_s, g_nll = nll_and_grad(sv)
+                # kernel B5 on a CUDA device: the value and its gradient
+                nll_s, g_nll = kernels.gmm_nll_and_grad(sv, *tables, node_id)
                 j_pad = torch.nn.functional.pad(
                     j_raw, (0, n_lat - j_raw.shape[2]))
                 r = act * (es * r_raw + qs * nll_s[:, None])
                 j = act[:, :, None] * (es * j_pad + qs * g_nll[:, None, :])
 
-                def value(x):
-                    nll_x, _ = nll_and_grad(x)
-                    return act * (es * vfn(x) + qs * nll_x[:, None])
+                def value(x):  # B5 without its gradient pass
+                    logp_x = kernels.gmm_scores(x, *tables, mix_id=node_id)
+                    return act * (es * vfn(x) - qs * logp_x[:, None])
 
                 return r, j, value
 
@@ -302,13 +306,11 @@ def _refine(skeleton, g, node_id, sc, s0, e0, cfg: WalkConfig,
         else:
             raw_make = compiled.make_frozen_root_residuals(
                 *args, ee_node=ee_idx)
-            # under torch.func.jvp: the plain log_prob, not kernel B5
-            gmm = _node_gmm(g, node_id)
 
             def make_fn(sv):
                 rf = raw_make(sv)
                 return lambda x: act * (
-                    es * rf(x) - qs * gmm_ops.log_prob(gmm, x)[:, None])
+                    es * rf(x) + qs * _gmm_nll(g, node_id, x)[:, None])
 
             s_opt, _ = lm.lm_minimize(None, s0, cfg.lm_iters,
                                       make_residual_fn=make_fn, **lm_kw)

@@ -282,3 +282,110 @@ def test_gmm_kernel_matches_twin(cuda):
     nll_t, grad_t = kernels.gmm_nll_and_grad_ref(*args, node)
     torch.testing.assert_close(nll, nll_t, rtol=1e-4, atol=1e-3)
     torch.testing.assert_close(grad, grad_t, rtol=1e-4, atol=1e-3)
+
+
+def _rand_mixtures(gen, device, m, k, d):
+    """m random mixtures of k components in d dims with well-conditioned
+    precision factors (identity plus noise of norm ~0.3)."""
+    w = torch.softmax(torch.randn((m, k), generator=gen, device=device), -1)
+    mu = torch.randn((m, k, d), generator=gen, device=device)
+    p = torch.eye(d, device=device) + 0.3 / d ** 0.5 * torch.randn(
+        (m, k, d, d), generator=gen, device=device)
+    return w, mu, p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 8, 1023])
+@pytest.mark.parametrize("k", [1, 5, 9])
+@pytest.mark.parametrize("d", [3, 28, 64])
+def test_gmm_kernel_shapes(cuda, d, k, c):
+    """B5 against its twins with rows spread over 3 mixtures, at the
+    compile-time width (D = 28) and the generic one (one and two columns a
+    lane): log p, -log p and the gradient within 1e-3 + 1e-4 |x|, the value
+    with and without the gradient pass equal bits; a row whose mix_id is
+    out of range gives NaN and leaves the other rows alone."""
+    gen = torch.Generator(device=cuda).manual_seed(100 * d + 10 * k + c % 7)
+    w, mu, p = _rand_mixtures(gen, cuda, 3, k, d)
+    mix = torch.randint(0, 3, (c,), generator=gen, device=cuda)
+    x = mu[mix, 0] + 1.5 * torch.randn((c, d), generator=gen, device=cuda)
+    lp = kernels.gmm_scores(x, w, mu, p, mix_id=mix)
+    nll, grad = kernels.gmm_nll_and_grad(x, w, mu, p, mix)
+    torch.cuda.synchronize()
+    assert torch.equal(lp, -nll)
+    nll_t, grad_t = kernels.gmm_nll_and_grad_ref(x, w, mu, p, mix)
+    torch.testing.assert_close(lp, kernels.gmm_scores_ref(x, w, mu, p, mix),
+                               rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(nll, nll_t, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(grad, grad_t, rtol=1e-4, atol=1e-3)
+    bad = mix.clone()
+    bad[c // 2] = 3 if c % 2 else -1
+    nll_b, grad_b = kernels.gmm_nll_and_grad(x, w, mu, p, bad)
+    torch.cuda.synchronize()
+    ok = torch.arange(c, device=cuda) != c // 2
+    assert bool(torch.isnan(nll_b[~ok]).all() and torch.isnan(
+        grad_b[~ok]).all())
+    assert torch.equal(nll_b[ok], nll[ok]) and torch.equal(grad_b[ok],
+                                                           grad[ok])
+
+
+@pytest.mark.cuda
+def test_gmm_kernel_late_dominant_component(cuda):
+    """The online logsumexp when a late component dominates by more than 80
+    in log: rows placed on the last component's mean, far from the others;
+    same bounds, also from tables 4 bytes off 16-byte alignment (the D = 28
+    instance's 16-byte copies do not apply; the generic instance runs)."""
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    w, mu, p = _rand_mixtures(gen, cuda, 2, 5, 28)
+    mu[:, :4] += 6.0  # |y|^2 / 2 of the first four components >> 80
+    mix = torch.arange(64, device=cuda) % 2
+    x = mu[mix, 4] + 0.1 * torch.randn((64, 28), generator=gen, device=cuda)
+    nll_t, grad_t = kernels.gmm_nll_and_grad_ref(x, w, mu, p, mix)
+    off = torch.empty(p.numel() + 1, device=cuda)[1:].view_as(p).copy_(p)
+    assert off.is_contiguous() and off.data_ptr() % 16 == 4
+    for prec in (p, off):
+        nll, grad = kernels.gmm_nll_and_grad(x, w, mu, prec, mix)
+        torch.testing.assert_close(nll, nll_t, rtol=1e-4, atol=1e-3)
+        torch.testing.assert_close(grad, grad_t, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 8, 1023])
+@pytest.mark.parametrize("k", [5, 28, 32, 40])
+def test_chol_solve_kernel_shapes(cuda, k, c):
+    """B2 against its twin at the register widths (28, 32), a padded width
+    (5) and the shared-memory routine (40), from an aligned batch and from
+    a view 4 bytes off 16-byte alignment (the scalar row load): atol 2e-4,
+    rtol 2e-3; the last system is zero and solves to exactly 0."""
+    gen = torch.Generator(device=cuda).manual_seed(10 * k + c % 7)
+    j = torch.randn((c, k + 12, k), generator=gen, device=cuda)
+    a = torch.bmm(j.transpose(1, 2), j) + 0.1 * torch.eye(k, device=cuda)
+    g = torch.randn((c, k), generator=gen, device=cuda)
+    a[-1] = 0.0
+    g[-1] = 0.0
+    off = torch.empty(a.numel() + 1, device=cuda)[1:].view_as(a).copy_(a)
+    assert off.is_contiguous() and off.data_ptr() % 16 == 4
+    x_t = kernels.chol_solve_unrolled(a, g)
+    for mat in (a, off):
+        x = kernels.chol_solve(mat, g)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(x, x_t, rtol=2e-3, atol=2e-4)
+        assert bool((x[-1] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [5, 28, 32, 40])
+def test_lm_delta_kernel_widths(cuda, k):
+    """B4 on both of its solves (the register routine for k <= 32, the
+    shared-memory one beyond) against its twin: atol 2e-4, rtol 2e-3."""
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    j = torch.randn((200, k + 21, k), generator=gen, device=cuda)
+    r = torch.randn((200, k + 21), generator=gen, device=cuda)
+    lam = 10.0 ** (torch.rand(200, generator=gen, device=cuda) * 4 - 3)
+    rad = 0.1 + 3.9 * torch.rand(200, generator=gen, device=cuda)
+    j[:2] = 0.0
+    r[:2] = 0.0
+    d = kernels.lm_delta(j, r, lam, rad)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(d, kernels.lm_delta_ref(j, r, lam, rad),
+                               rtol=2e-3, atol=2e-4)
+    assert bool((d[:2] == 0).all())

