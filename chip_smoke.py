@@ -31,8 +31,15 @@ Phases, one line each (or a few):
   8. kernel B6 (the crowd back-projection) against its twin at [1024
      characters over all nodes, T 160, n_basis 16, n_dim 79, K 25] with
      time-warped bases, and at the TPU kernel's shared-operand signature;
+     then the frame-emit kernel of the same source (`kernels.emit_frames`:
+     basis weights, back-projection, aligning transform, seam smoothing)
+     against its twin at that shape with and without a previous clip, with
+     a node id outside the table, and at the serving shape [8, T 64];
+     joints whose hemisphere dot lies within EMIT_DOT_EPS of 0 in the twin
+     may take either sign and are counted, not compared;
   9. the serving entry point, BatchedGenerator on the reference-scale model,
-     answers 8 trajectory requests with the exact LM; B1, B2, B5 and B6
+     answers 8 trajectory requests with the exact LM through
+     parallel.constrained_crowd_sharded; B1, B2, B5 and the emit kernel
      must have launched;
  10. small walks on the GPU path against the same walks on the CPU path
      (the kernels' twins) with the same random draws: root-only without
@@ -46,9 +53,11 @@ Phases, one line each (or a few):
      `lm_exact` and `ee_exact` (the exact LM): frames/s and the mean
      constraint error, with the kernels each run launched; then the random
      crowds at BASELINE config 5's shape (1024 characters x 8 steps of
-     random_walk_segments, 160 frames a step) and in the concatenating
-     form, with the random walk's largest root seam jump beside the numpy
-     reference concatenation's (tests/reference_oracle.py);
+     random_walk_segments, 160 frames a step), in the concatenating form,
+     with the random walk's largest root seam jump beside the numpy
+     reference concatenation's (tests/reference_oracle.py), and on the
+     canonical timeline (use_time=False), the path that gives kernel B6 a
+     basis;
  12. one more root-only, ee, lm_exact and config-5 crowd run under
      torch.profiler: device busy and idle share, time per walk stage, the
      top kernels and each of the port's kernels (launched through ctypes,
@@ -92,6 +101,12 @@ B5_RTOL, B5_ATOL = 1e-4, 1e-3
 # B6: fp32 sums of 25 (eigen) and 16 (basis) products of values up to a few
 # hundred cm, taken in other orders by kernel and twin
 B6_RTOL, B6_ATOL = 1e-5, 1e-3
+# the emit kernel rounds as B6 does and its epilogue adds a rotation and a
+# blend of the same values: B6's bound holds.  A joint whose quaternion lies
+# within EMIT_DOT_EPS of the previous frame's equator (|dot| of unit
+# quaternions) may get the other sign from a last-bit difference; both are
+# the same rotation, so such joints are counted and left out
+EMIT_DOT_EPS = 1e-4
 WALK_FRAMES_ATOL = 1e-2  # GPU vs CPU walk frames, the whole-walk bound
 # the H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): HBM bytes
 # and fp32 operations outside the tensor cores, for each kernel's bound
@@ -139,7 +154,8 @@ def _time_ms(fn, reps: int) -> float:
 
 PORT_KERNELS = ("score_loco_kernel", "chol_solve_kernel",
                 "chol_solve_smem_kernel", "lm_delta_kernel",
-                "gmm_scores_kernel", "back_project_kernel")
+                "lm_delta_smem_kernel", "gmm_scores_kernel",
+                "back_project_kernel", "emit_frames_kernel")
 _PORT_KERNEL_RE = re.compile(r"(\w+_kernel)(<[^(]*>)?\(")
 
 
@@ -470,6 +486,7 @@ def phase_selection(stacked, skel, device, ee: bool):
 
 
 SERVING_CHARS = 8  # the serving batch of phase 9
+SERVING_FRAMES = 64  # its frames a step
 
 
 def phase_b2(device):
@@ -684,7 +701,120 @@ def phase_b6(stacked, device):
             _fail(f"B6 ({label}) disagrees with its twin")
         worst = max(worst, float(err.max()))
     times["gathered"]["max_abs_err"] = worst
-    return times["gathered"]
+    return times["gathered"], phase_emit(stacked, device)
+
+
+def _emit_case(stacked, device, n_chars, n_frames_max, seed, has_prev):
+    """Inputs of `kernels.emit_frames` as a walk step makes them: latents
+    over all nodes, their time functions, and as the previous clip's last
+    frame the last valid row of another draw's clip."""
+    import torch
+    from morphablegraphs_tpu_torch.ops import kernels
+    from morphablegraphs_tpu_torch.synthesis import walk
+    node, s = _node_draws(stacked, n_chars, device, seed=seed)
+    k = stacked.k_s_max
+    t_fn, n_frames = walk.warped_time(stacked, node, s[:, k:], n_frames_max)
+    prev = None
+    if has_prev:
+        node_p, s_p = _node_draws(stacked, n_chars, device, seed=seed + 1)
+        t_p, n_p = walk.warped_time(stacked, node_p, s_p[:, k:], n_frames_max)
+        prev = kernels.emit_frames_ref(
+            s_p[:, :k].contiguous(), stacked.eigen_s, stacked.mean_s,
+            stacked.knots_s, node_p, t_p, n_p, None, False, 0)[1].contiguous()
+    return (s[:, :k].contiguous(), stacked.eigen_s, stacked.mean_s,
+            stacked.knots_s, node, t_fn, n_frames, prev, has_prev, 20)
+
+
+def _near_equator(args, frames_t):
+    """[C, J] mask of the joints whose hemisphere dot against prev_last lies
+    within EMIT_DOT_EPS of 0 in some frame of the twin's aligned clip (the
+    twin run with window 0: transformed, not smoothed)."""
+    import torch
+    from morphablegraphs_tpu_torch.ops import kernels
+    prev = args[7]
+    c, t, d = frames_t.shape
+    if prev is None:
+        return torch.zeros((c, (d - 3) // 4), dtype=torch.bool,
+                           device=frames_t.device)
+    aligned = kernels.emit_frames_ref(*args[:9], 0)[0]
+    dots = (aligned[:, :, 3:].reshape(c, t, -1, 4)
+            * prev[:, None, 3:].reshape(c, 1, -1, 4)).sum(-1)
+    return (dots.abs() < EMIT_DOT_EPS).any(1)
+
+
+def phase_emit(stacked, device):
+    """The frame-emit kernel against its twin at the crowd's shape (1024
+    characters over all nodes, T 160) with and without a previous clip, at
+    the serving shape (8 characters, T 64), and with one node id outside
+    the table (NaN rows for that character, the others untouched).  Frames
+    and the carried last frame within B6's bound, joints near the equator
+    of their previous quaternion left out and counted.  -> the crowd
+    shape's results with a previous clip (the walk's steps after the
+    first)."""
+    import torch
+    from morphablegraphs_tpu_torch.ops import kernels
+    results = {}
+    for label, n_chars, t_max, has_prev in (
+            ("crowd", KERNEL_CHARS, RANDOM_FRAMES, True),
+            ("crowd", KERNEL_CHARS, RANDOM_FRAMES, False),
+            ("serving", SERVING_CHARS, SERVING_FRAMES, True)):
+        args = _emit_case(stacked, device, n_chars, t_max, 20, has_prev)
+        f_k, l_k = kernels.emit_frames(*args)
+        f_t, l_t = kernels.emit_frames_ref(*args)
+        torch.cuda.synchronize()
+        skip = _near_equator(args, f_t)  # [C, J]
+        keep = torch.cat([torch.ones((n_chars, 3), dtype=torch.bool,
+                                     device=device),
+                          (~skip).repeat_interleave(4, dim=1)], dim=1)
+        err = (f_k - f_t).abs() * keep[:, None]
+        err_last = (l_k - l_t).abs() * keep
+        worst = max(float(err.max()), float(err_last.max()))
+        ok = bool(torch.isfinite(f_k).all()) \
+            and bool(torch.isfinite(l_k).all()) \
+            and not bool((err > B6_ATOL + B6_RTOL * f_t.abs()).any()) \
+            and not bool((err_last > B6_ATOL + B6_RTOL * l_t.abs()).any())
+        plain_ms = _time_ms(lambda: kernels.emit_frames_ref(*args), 5)
+        nd, k = f_k.shape[-1], args[0].shape[1]
+        nb = stacked.n_basis_max
+        # the coefficients, 4 taps a frame value, ~10 operations a value for
+        # the transform, the sign and the blend
+        bound_ms, by = _bound(
+            _nbytes(*(a for a in args[:8] if a is not None), f_k, l_k),
+            n_chars * (2 * nb * nd * k + (8 + 10 * has_prev) * t_max * nd))
+        key = (label, has_prev)
+        results[key] = dict(max_abs_err=worst, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=by, library_ms=None)
+        _kernel_line(
+            f"B6 emit_frames {label} [{n_chars}, T={t_max}, n_basis={nb}, "
+            f"n_dim={nd}, K={k}] has_prev={has_prev}: max_abs_err="
+            f"{worst:.3e} (|x| up to {float(f_t.abs().max()):.1f}; tol "
+            f"{B6_ATOL}+{B6_RTOL}*|x|), {int(skip.sum())} of {skip.numel()} "
+            f"joints within {EMIT_DOT_EPS} of the equator left out",
+            lambda args=args: kernels.emit_frames(*args), 50, bound_ms,
+            lambda ms, n=f_k.numel(), bound_ms=bound_ms, by=by,
+            plain_ms=plain_ms: (
+                f"(bound_ms={bound_ms:.5f}, {by}) twin_ms={plain_ms:.4f} "
+                f"({n * 4 / ms / 1e6:.0f} GB/s of output)"), results[key])
+        if not ok:
+            _fail(f"emit_frames ({label}, has_prev={has_prev}) disagrees "
+                  "with its twin")
+    # a node id outside the table: NaN rows, the neighbours as before
+    args = list(_emit_case(stacked, device, 64, RANDOM_FRAMES, 22, True))
+    good = kernels.emit_frames(*args)
+    args[4] = args[4].clone()
+    args[4][5] = stacked.n_nodes
+    args[4][17] = -1
+    bad = kernels.emit_frames(*args)
+    torch.cuda.synchronize()
+    rows = torch.ones(64, dtype=torch.bool, device=device)
+    rows[[5, 17]] = False
+    if not all(bool(torch.isnan(b[~rows]).all())
+               and torch.equal(b[rows], g[rows]) for b, g in zip(bad, good)):
+        _fail("emit_frames: a node id outside the table must give NaN rows "
+              "and leave the other characters alone")
+    print("B6 emit_frames: node ids outside the table give NaN rows, the "
+          "other characters' rows are unchanged", flush=True)
+    return results[("crowd", True)]
 
 
 def _traj_request(end_x, end_z):
@@ -702,9 +832,17 @@ def _traj_request(end_x, end_z):
 
 def phase_serve(graph, device):
     import torch
+    from morphablegraphs_tpu_torch import parallel
     from morphablegraphs_tpu_torch.ops import kernels
     from morphablegraphs_tpu_torch.serve.batch import BatchedGenerator
     bg = BatchedGenerator(graph, device=device)
+    sharded, through = parallel.constrained_crowd_sharded, []
+
+    def counting(devices, *args, **kw):
+        through.append([str(d) for d in devices])
+        return sharded(devices, *args, **kw)
+
+    parallel.constrained_crowd_sharded = counting
     reqs = [_traj_request(x, z) for x, z in
             [(20, 100), (-20, 100), (0, 120), (40, 90), (-40, 90),
              (10, 140), (-10, 60), (30, 150)]]
@@ -721,17 +859,22 @@ def phase_serve(graph, device):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = kernels.launch_counts()
+    parallel.constrained_crowd_sharded = sharded
+    if through != [[str(device)]] * 2:
+        _fail("serving did not go through parallel.constrained_crowd_sharded "
+              f"on {device}: {through}")
     n_frames = [o.shape[0] for o in outs]
     finite = all(np.all(np.isfinite(o)) for o in outs)
-    print(f"serve: BatchedGenerator (exact LM) answered {len(outs)} requests "
+    print(f"serve: BatchedGenerator (exact LM, through parallel/ on "
+          f"{through[0]}) answered {len(outs)} requests "
           f"in {dt:.3f} s, frames per request {n_frames}, all finite="
           f"{finite}, launches {counts}", flush=True)
     if not finite or min(n_frames) <= 30:
         _fail("serving output is not finite or too short")
     if any(counts[k] <= 0 for k in ("score_locomotion_candidates",
                                     "chol_solve", "gmm_scores",
-                                    "crowd_back_project")):
-        _fail("serving did not launch B1, B2, B5 and B6")
+                                    "emit_frames")):
+        _fail("serving did not launch B1, B2, B5 and the emit kernel (B6)")
     return counts
 
 
@@ -746,20 +889,28 @@ WALKS = {
     "lm_exact": (dict(lm_frozen=False), False),
     "ee_exact": (dict(pallas_ee=EE_JOINT, lm_frozen=False), True),
 }
+CROWDS = tuple(WALKS)  # the walks of phase 11
+# phase 10 only: the general selection path (the exact evaluator ranks the
+# candidates), with an orientation keyframe on the hand, which the selection
+# kernels would refuse
+WALKS["general"] = (dict(pallas_selection=False, lm_frozen=False), False)
+GENERAL_QUAT = (0.9659258, 0.0, 0.2588190, 0.0)  # 30 degrees about Y
 # kernels each walk must launch (> 0) and must not launch (== 0): every
-# walk back-projects through B6 and takes its LM's GMM term from B5 (the
-# closed frozen LM directly, the exact LM through `kernels.gmm_nll`)
+# walk emits its frames through the emit kernel (B6's source) and takes its
+# LM's GMM term from B5 (the closed frozen LM directly, the exact LM
+# through `kernels.gmm_nll`)
 WALK_KERNELS = {
     "root": (("score_locomotion_candidates", "chol_solve", "gmm_scores",
-              "crowd_back_project"), ("lm_delta",)),
+              "emit_frames"), ("lm_delta", "crowd_back_project")),
     "ee": (("score_locomotion_candidates_ee", "chol_solve", "gmm_scores",
-            "crowd_back_project"), ("lm_delta",)),
+            "emit_frames"), ("lm_delta", "crowd_back_project")),
     "ee_fused": (("score_locomotion_candidates_ee", "lm_delta", "gmm_scores",
-                  "crowd_back_project"), ("chol_solve",)),
+                  "emit_frames"), ("chol_solve", "crowd_back_project")),
     "lm_exact": (("score_locomotion_candidates", "chol_solve", "gmm_scores",
-                  "crowd_back_project"), ("lm_delta",)),
+                  "emit_frames"), ("lm_delta", "crowd_back_project")),
     "ee_exact": (("score_locomotion_candidates_ee", "chol_solve",
-                  "gmm_scores", "crowd_back_project"), ("lm_delta",)),
+                  "gmm_scores", "emit_frames"),
+                 ("lm_delta", "crowd_back_project")),
 }
 
 
@@ -772,9 +923,15 @@ def _walk_cfg(name: str, lm_iters: int = 3):
 
 def _step_scs(skel, name: str, n_steps: int):
     """bench.py's per-step constraint sets: empty, or with ee a RightHand
-    keyframe at EE_TARGET on canonical frame 129 in user slot 2."""
+    keyframe at EE_TARGET on canonical frame 129 in user slot 2; for the
+    general walk a RightHand orientation keyframe there."""
     from morphablegraphs_tpu_torch.constraints import compiled
     from morphablegraphs_tpu_torch.synthesis import constrained_walk as cw
+    if name == "general":  # an orientation keyframe: no kernel ranks it
+        base = compiled.set_keyframe_constraint(
+            compiled.empty_step_constraints(skel, 0), 2, skel, EE_JOINT,
+            EE_FRAME, quat_wxyz=np.asarray(GENERAL_QUAT, np.float32))
+        return cw.stack_steps(base, n_steps)
     if not WALKS[name][1]:
         return cw.default_step_scs(skel, n_steps)
     base = compiled.set_keyframe_constraint(
@@ -848,7 +1005,8 @@ def phase_reference(stacked_gpu, skel):
     start = stacked_gpu.node_id(("walk", "beginLeftStance"))
     for name, lm_iters, held in (("root", 0, True), ("root", 3, True),
                                  ("lm_exact", 3, True), ("ee", 1, True),
-                                 ("ee_fused", 1, True), ("ee", 3, False)):
+                                 ("ee_fused", 1, True), ("ee", 3, False),
+                                 ("general", 1, True)):
         cfg = _walk_cfg(name, lm_iters)
         scs = _step_scs(skel, name, n_steps)
         forced = WALKS[name][1] and held
@@ -1039,7 +1197,8 @@ def phase_random_crowd(name, stacked, device, card: str, reps: int = 3):
     """A random-walk crowd of 1024 characters x 8 steps, 160 frames a step
     (BASELINE config 5): `segments` is random_walk_segments, the benchmark's
     form; `concat` is random_walk, which appends to one buffer per
-    character.  A warm-up run, then `reps` timed runs on fresh draws.
+    character; `canonical` is the segment form without the time warp
+    (use_time=False).  A warm-up run, then `reps` timed runs on fresh draws.
     Returns (median seconds, median frames/s, launches, run)."""
     import torch
     from morphablegraphs_tpu_torch.ops import kernels
@@ -1047,13 +1206,17 @@ def phase_random_crowd(name, stacked, device, card: str, reps: int = 3):
     start = torch.full((CROWD_CHARS,),
                        stacked.node_id(("walk", "beginLeftStance")),
                        device=device)
-    fn = walk.random_walk_segments if name == "segments" else walk.random_walk
+    fn = walk.random_walk if name == "concat" else walk.random_walk_segments
+    # the time-warped walks emit through the emit kernel; the canonical
+    # timeline builds its basis and goes through B6
+    use_time = name != "canonical"
+    kernel = "emit_frames" if use_time else "crowd_back_project"
 
     def run(seed):
         gen = torch.Generator(device=device).manual_seed(seed)
         return fn(stacked, start, CROWD_STEPS,
                   walk.torch_sampler(gen, stacked, CROWD_CHARS, 1),
-                  max_step_frames=RANDOM_FRAMES)
+                  max_step_frames=RANDOM_FRAMES, use_time=use_time)
 
     run(1)  # warm-up
     torch.cuda.synchronize()
@@ -1073,11 +1236,12 @@ def phase_random_crowd(name, stacked, device, card: str, reps: int = 3):
           f"{RANDOM_FRAMES} frames a step, on {card}: median {fps:.1f} "
           f"frames/s over {reps} runs (seconds {times}, frames/s {rates}), "
           f"finite={finite}, launches {launches}", flush=True)
-    others = [k for k, v in launches.items() if v and k != "crowd_back_project"]
+    others = [k for k, v in launches.items() if v and k != kernel]
     if not finite or min(rates) <= 0:
         _fail(f"crowd random {name}: output is not finite or empty")
-    if launches["crowd_back_project"] <= 0 or others:
-        _fail(f"crowd random {name}: launched {launches}, needs B6 only")
+    if launches[kernel] <= 0 or others:
+        _fail(f"crowd random {name}: launched {launches}, needs {kernel} "
+              "only")
     if name == "concat":
         ours, oracle = _seam_jumps(stacked, frames, counts, ids, latents)
         print(f"crowd random concat: max root seam jump {ours:.3f} cm/frame "
@@ -1170,9 +1334,10 @@ def _resource_usage():
               "local"
               for m in re.finditer(r"\d(chol_solve_kernel|"
                                    r"chol_solve_smem_kernel|lm_delta_kernel|"
-                                   r"gmm_scores_kernel|back_project_kernel)"
+                                   r"lm_delta_smem_kernel|gmm_scores_kernel|"
+                                   r"back_project_kernel|emit_frames_kernel)"
                                    r"(ILi(\d+)E)?" + usage, out.stdout)]
-    if not selection or len(others) < 7:
+    if not selection or len(others) < 12:
         _fail("cuobjdump does not list every kernel of the port")
     return selection, others
 
@@ -1208,7 +1373,7 @@ def main():
     b3_err, b3_times = phase_selection(stacked, skel, device, True)
     res["lm_delta"] = phase_b4(device)
     res["gmm_scores"] = phase_b5(stacked, device)
-    res["crowd_back_project"] = phase_b6(stacked, device)
+    res["crowd_back_project"], res["emit_frames"] = phase_b6(stacked, device)
     for name, err, times in (
             ("score_locomotion_candidates", b1_err, b1_times),
             ("score_locomotion_candidates_ee", b3_err, b3_times)):
@@ -1219,13 +1384,13 @@ def main():
     phase_reference(stacked, skel)
     phase_random_reference(stacked)
     crowds = {name: phase_crowd(name, stacked, skel, device, smi)
-              for name in WALKS}
+              for name in CROWDS}
     fused, unfused = crowds["ee_fused"][1], crowds["ee"][1]
     print(f"crowd ee: LM step through B4 {fused:.1f} frames/s vs through "
           f"B2 {unfused:.1f} frames/s (ratio {fused / unfused:.3f})",
           flush=True)
     randoms = {name: phase_random_crowd(name, stacked, device, smi)
-               for name in ("segments", "concat")}
+               for name in ("segments", "concat", "canonical")}
     _flush_kernel_lines()
     for name in ("root", "ee", "lm_exact"):
         phase_profile(name, crowds[name][4], crowds[name][0])
@@ -1243,7 +1408,8 @@ def main():
              ("lm_delta", "lm_delta.cu", 886, crowds["ee_fused"][3]),
              ("gmm_scores", "gmm_scores.cu", 163, crowds["root"][3]),
              ("crowd_back_project", "back_project.cu", 76,
-              randoms["segments"][2]))
+              randoms["canonical"][2]),
+             ("emit_frames", "back_project.cu", 76, randoms["segments"][2]))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + source,
          "replaces": f"{tpu}{line}", "launches": counts[name], **res[name]}

@@ -329,10 +329,12 @@ def _at_nodes(table: torch.Tensor, node: torch.Tensor) -> torch.Tensor:
 
 def residuals_from_coeffs(skeleton: Skeleton, knots_s: torch.Tensor,
                           sc: StepConstraints, coeffs: torch.Tensor,
-                          root_only: bool = True) -> torch.Tensor:
+                          root_only: bool = True,
+                          use_traj: bool = True) -> torch.Tensor:
     """Residuals [C, N_RESIDUALS] of aligned B-spline coefficients
-    coeffs [C, n_basis, D]: the JAX function with use_traj=True,
-    use_ca=use_ts=False, chain_fk=False.
+    coeffs [C, n_basis, D]: the JAX function with use_ca=use_ts=False,
+    chain_fk=False.  use_traj=False leaves the trajectory slots 0 and
+    skips their closest-point search.
 
     root_only=True reads the root transform for every slot (valid only when
     every active slot is on the root, `step_scs_root_only`; only channels
@@ -356,6 +358,9 @@ def residuals_from_coeffs(skeleton: Skeleton, knots_s: torch.Tensor,
     kf_res = _kf_residuals(sc, jpos, jori)
     # the direction reads the frame's root quaternion channels directly
     dir_res = _dir_residual(sc, frames[..., MAX_KF, 3:7])
+    if not use_traj:
+        return _layout(kf_res, dir_res, kf_res.new_zeros(
+            kf_res.shape[:-1] + (TRAJ_SAMPLES,)))
     _, arcs, traj_d = spline_path.closest_points_advancing(
         sc.traj, traj_p, sc.traj_min_arc)
     return _layout(kf_res, dir_res,

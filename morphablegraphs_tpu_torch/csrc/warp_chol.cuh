@@ -1,12 +1,14 @@
 // One warp's Cholesky solve of a k x k SPD system, shared by kernels B2
 // (chol_solve.cu) and B4 (lm_delta.cu); kernel B5 (gmm_scores.cu) uses the
-// warp reductions and the grid rule.
+// warp reductions and the grid rule, kernel B6 (back_project.cu) the SM
+// count.
 //
 // What bounds the solve on the H100 is the latency of its k dependent
 // column steps, so the design keeps every step inside the register file:
 //
-// * `warp_chol_solve_rows<KW>` (k <= KW <= 32): lane i owns row i of the
-//   matrix in KW registers (every loop is unrolled, so each index is a
+// * `warp_chol_solve_regs<KW>` (k <= KW <= 32; `warp_chol_solve_rows<KW>`
+//   loads the rows for it, kernel B4 builds them in place): lane i owns row
+//   i of the matrix in KW registers (every loop is unrolled, so each index is a
 //   compile-time register).  Right-looking: at column j lane j broadcasts
 //   the pivot with one shuffle, every lane scales its entry by one
 //   reciprocal square root computed once a column (no division), and
@@ -42,11 +44,8 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Warps per block (8, 4, 2 or 1) for kernels that give each of `rows` items
-// one warp: the most whose grid still has a block for every SM, so that a
-// crowd of 1024 runs 4 warps a block on 256 blocks (132 SMs) and a serving
-// batch of 8 spreads over 8 SMs.
-inline int warps_per_block(int rows) {
+// SMs of the current device (asked once a process).
+inline int sm_count() {
   static int n_sm = 0;
   if (n_sm == 0) {
     int dev = 0;
@@ -54,44 +53,30 @@ inline int warps_per_block(int rows) {
     cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
     if (n_sm <= 0) n_sm = 1;
   }
+  return n_sm;
+}
+
+// Warps per block (8, 4, 2 or 1) for kernels that give each of `rows` items
+// one warp: the most whose grid still has a block for every SM, so that a
+// crowd of 1024 runs 4 warps a block on 256 blocks (132 SMs) and a serving
+// batch of 8 spreads over 8 SMs.
+inline int warps_per_block(int rows) {
+  const int n_sm = sm_count();
   int warps = 8;
   while (warps > 1 && (rows + warps - 1) / warps < n_sm) warps /= 2;
   return warps;
 }
 
-// Solve A x = g for one k x k system (k <= KW <= 32) with the whole warp;
-// returns x[lane] (0 for lane >= k).  A is row-major with row stride k, in
-// global or shared memory; vec says that k == KW and A is 16-byte aligned,
-// so that a lane loads its row with 16-byte loads.
+// The register solve itself: lane i holds row i of the k x k SPD matrix in
+// a[0..KW) (a system narrower than KW padded with a unit diagonal) and its
+// right-hand side entry in acc (0 past k); returns x[lane] (0 for lane >= k).
+// Only the lower triangle of the matrix takes part in the result.
 template <int KW>
-__device__ __forceinline__ float warp_chol_solve_rows(const float* A,
-                                                      const float* g, int k,
-                                                      int lane, bool vec) {
+__device__ __forceinline__ float warp_chol_solve_regs(float (&a)[KW],
+                                                      float acc, int lane) {
   static_assert(KW % 4 == 0 && KW <= 32, "one matrix row a lane");
   constexpr unsigned FULL = 0xffffffffu;
-  float a[KW];
-  if (vec) {
-    if (lane < KW) {
-      const float4* row = reinterpret_cast<const float4*>(A + lane * KW);
-#pragma unroll
-      for (int q = 0; q < KW / 4; ++q) {
-        const float4 v = row[q];
-        a[4 * q] = v.x;
-        a[4 * q + 1] = v.y;
-        a[4 * q + 2] = v.z;
-        a[4 * q + 3] = v.w;
-      }
-    } else {
-#pragma unroll
-      for (int p = 0; p < KW; ++p) a[p] = 0.f;
-    }
-  } else {
-#pragma unroll
-    for (int p = 0; p < KW; ++p)
-      a[p] = (lane < k && p < k) ? A[lane * k + p] : (p == lane ? 1.f : 0.f);
-  }
-  float acc = lane < k ? g[lane] : 0.f;  // g_i minus the finished columns
-  float dinv = 1.f;                      // 1 / L_ii of this lane's row
+  float dinv = 1.f;  // 1 / L_ii of this lane's row
 
   // factorization, with the forward substitution L y = g riding along
 #pragma unroll
@@ -120,6 +105,39 @@ __device__ __forceinline__ float warp_chol_solve_rows(const float* A,
     acc = lane < p ? fmaf(-a[p], xp, acc) : acc;
   }
   return x;
+}
+
+// Solve A x = g for one k x k system (k <= KW <= 32) with the whole warp;
+// returns x[lane] (0 for lane >= k).  A is row-major with row stride k, in
+// global or shared memory; vec says that k == KW and A is 16-byte aligned,
+// so that a lane loads its row with 16-byte loads.
+template <int KW>
+__device__ __forceinline__ float warp_chol_solve_rows(const float* A,
+                                                      const float* g, int k,
+                                                      int lane, bool vec) {
+  float a[KW];
+  if (vec) {
+    if (lane < KW) {
+      const float4* row = reinterpret_cast<const float4*>(A + lane * KW);
+#pragma unroll
+      for (int q = 0; q < KW / 4; ++q) {
+        const float4 v = row[q];
+        a[4 * q] = v.x;
+        a[4 * q + 1] = v.y;
+        a[4 * q + 2] = v.z;
+        a[4 * q + 3] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int p = 0; p < KW; ++p) a[p] = 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int p = 0; p < KW; ++p)
+      a[p] = (lane < k && p < k) ? A[lane * k + p] : (p == lane ? 1.f : 0.f);
+  }
+  // g_i minus the finished columns
+  return warp_chol_solve_regs<KW>(a, lane < k ? g[lane] : 0.f, lane);
 }
 
 // The same solve with the factor in shared memory, for any k.  L holds the

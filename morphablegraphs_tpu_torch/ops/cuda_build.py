@@ -55,9 +55,11 @@ def _declare(lib):
     lib.mg_lm_delta.argtypes = [vp, vp, vp, vp, vp, i, i, i, f, vp]
     lib.mg_back_project.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, i,
                                     i, vp]
+    lib.mg_emit_frames.argtypes = [vp] * 10 + [i] * 8 + [vp]
     lib.mg_gmm_scores.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, vp]
     for fn in (lib.mg_score_loco, lib.mg_score_loco_ee, lib.mg_chol_solve,
-               lib.mg_lm_delta, lib.mg_back_project, lib.mg_gmm_scores):
+               lib.mg_lm_delta, lib.mg_back_project, lib.mg_emit_frames,
+               lib.mg_gmm_scores):
         fn.restype = i
     return lib
 

@@ -14,8 +14,10 @@
   gradient of -log p in the same pass (the LM's naturalness term);
   `gmm_nll` is the form the exact LM differentiates.
 * B6 `crowd_back_project` (csrc/back_project.cu): fPCA back-projection and
-  B-spline evaluation of every character's latent (each walk step's
-  frames).
+  B-spline evaluation of every character's latent on a given basis, and
+  `emit_frames` (the same source): the whole frame-emit stage of a walk
+  step in one launch, the basis weights from the time function inside the
+  kernel, then the aligning transform and the seam smoothing.
 
 A wrapper given CPU tensors runs the twin; given CUDA tensors it launches
 the kernel (or raises).  Each wrapper adds one to its kernel's entry of
@@ -29,7 +31,7 @@ import math
 import numpy as np
 import torch
 
-from . import bspline, cuda_build, gmm as gmm_ops
+from . import align, bspline, cuda_build, gmm as gmm_ops
 
 N_EVAL = 19  # goal kf + dir + 16 traj samples + frame 0 (alignment)
 CH = 8  # root channels per eval frame, padded (x y z qw qx qy qz _)
@@ -42,7 +44,7 @@ _PI = math.pi
 _LAUNCHES = {"score_locomotion_candidates": 0,
              "score_locomotion_candidates_ee": 0,
              "chol_solve": 0, "lm_delta": 0, "gmm_scores": 0,
-             "crowd_back_project": 0}
+             "crowd_back_project": 0, "emit_frames": 0}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -787,6 +789,100 @@ def crowd_back_project(alphas: torch.Tensor, eigen: torch.Tensor,
             "crowd_back_project launch")
     _LAUNCHES["crowd_back_project"] += 1
     return out
+
+
+def _emit_args(alphas, eigen, mean, knots, mix_id, t_fn, n_frames,
+               prev_last, has_prev):
+    c, k = alphas.shape
+    m, d, _ = eigen.shape
+    n_basis = knots.shape[-1] - bspline.DEGREE - 1
+    if eigen.shape[2] != k or mean.shape != (m, d) or knots.dim() != 2 \
+            or knots.shape[0] != m or n_basis < 1 or d % n_basis != 0 \
+            or mix_id.shape != (c,) or t_fn.dim() != 2 \
+            or t_fn.shape[0] != c or n_frames.shape != (c,) \
+            or (prev_last is None) == bool(has_prev) \
+            or (has_prev and prev_last.shape != (c, d // n_basis)):
+        raise ValueError("emit_frames expects alphas [C, K], eigen "
+                         "[M, n_basis*n_dim, K], mean [M, n_basis*n_dim], "
+                         "knots [M, n_basis+4], mix_id [C], t_fn [C, T], "
+                         "n_frames [C] and, exactly when has_prev, "
+                         "prev_last [C, n_dim]")
+    n_dim = d // n_basis
+    if n_dim < 7 or (n_dim - 3) % 4 != 0:
+        raise ValueError("emit_frames: frames are a root translation and "
+                         f"quaternions, n_dim = 3 + 4 J, got {n_dim}")
+    return n_basis, n_dim
+
+
+def emit_frames_ref(alphas, eigen, mean, knots, mix_id, t_fn, n_frames,
+                    prev_last, has_prev: bool, window: int):
+    """Plain PyTorch twin of `emit_frames`, the composition a walk step ran
+    before the fused kernel: `bspline.basis_matrix` on the time function,
+    `crowd_back_project_ref`, and with has_prev
+    `align.node_aligning_2d_transform` of frame 0 onto prev_last,
+    `align.transform_frames` and `align.smooth_transition`; then the gather
+    of row n_frames - 1 -> (frames [C, T, n_dim], new_last [C, n_dim])."""
+    _emit_args(alphas, eigen, mean, knots, mix_id, t_fn, n_frames, prev_last,
+               has_prev)
+    basis = bspline.basis_matrix(knots[mix_id], t_fn)
+    frames = crowd_back_project_ref(alphas, eigen, mean, basis, mix_id)
+    if has_prev:
+        q_y, delta = align.node_aligning_2d_transform(prev_last,
+                                                      frames[:, 0])
+        frames = align.smooth_transition(
+            prev_last, align.transform_frames(frames, q_y, delta), window)
+    last_idx = torch.clamp(n_frames - 1, min=0).long()
+    rows = torch.arange(frames.shape[0], device=frames.device)
+    return frames, frames[rows, last_idx]
+
+
+def emit_frames(alphas: torch.Tensor, eigen: torch.Tensor, mean: torch.Tensor,
+                knots: torch.Tensor, mix_id: torch.Tensor,
+                t_fn: torch.Tensor, n_frames: torch.Tensor,
+                prev_last: torch.Tensor, has_prev: bool, window: int):
+    """The frame-emit stage of a walk step in one kernel: back-project
+    alphas [C, K] at nodes mix_id [C] (eigen [M, n_basis*n_dim, K], mean
+    [M, n_basis*n_dim]) on the cubic B-spline of knots [M, n_basis+4] at
+    the times t_fn [C, T]; with has_prev align the clip onto prev_last
+    [C, n_dim] (heading and XZ position of frame 0) and smooth the seam over
+    `window` frames, without it prev_last is None -> (frames [C, T, n_dim],
+    new_last [C, n_dim] = row n_frames[c] - 1).  No basis tensor and no
+    unaligned frames reach device memory.  A mix_id outside [0, M) gives
+    NaN rows."""
+    n_basis, n_dim = _emit_args(alphas, eigen, mean, knots, mix_id, t_fn,
+                                n_frames, prev_last, has_prev)
+    if alphas.device.type == "cpu":
+        return emit_frames_ref(alphas, eigen, mean, knots, mix_id, t_fn,
+                               n_frames, prev_last, has_prev, window)
+    if alphas.device.type != "cuda":
+        raise ValueError(f"no kernel for device {alphas.device}")
+    alphas, eigen, mean, knots, t_fn = (
+        t.contiguous() for t in (alphas, eigen, mean, knots, t_fn))
+    _check_cuda("emit_frames", alphas, eigen, mean, knots, t_fn)
+    if has_prev:
+        prev_last = prev_last.contiguous()
+        _check_cuda("emit_frames", alphas, prev_last)
+    dev = alphas.device
+    mix_id = mix_id.to(device=dev, dtype=torch.long).contiguous()
+    n_frames = n_frames.to(device=dev, dtype=torch.int32).contiguous()
+    c, k = alphas.shape
+    t = t_fn.shape[1]
+    out = torch.empty((c, t, n_dim), dtype=torch.float32, device=dev)
+    new_last = torch.empty((c, n_dim), dtype=torch.float32, device=dev)
+    if c == 0 or t == 0:
+        return out, new_last
+    lib = cuda_build.load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        cuda_build.check(lib.mg_emit_frames(
+            eigen.data_ptr(), mean.data_ptr(), knots.data_ptr(),
+            mix_id.data_ptr(), alphas.data_ptr(), t_fn.data_ptr(),
+            n_frames.data_ptr(),
+            prev_last.data_ptr() if has_prev else None, out.data_ptr(),
+            new_last.data_ptr(), c, eigen.shape[0], k, n_basis, n_dim, t,
+            int(bool(has_prev)), int(window), stream), "emit_frames launch")
+    _LAUNCHES["emit_frames"] += 1
+    return out, new_last
 
 
 def reset_launch_counts():

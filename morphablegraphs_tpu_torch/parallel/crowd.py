@@ -78,7 +78,8 @@ def constrained_crowd_sharded(devices: Sequence, skeleton: Skeleton,
     run first; a character count that does not divide the devices is
     padded by repeating the first character (its draws too) and the
     padding is sliced off the outputs.  Returns (segments, n_frames,
-    node_ids, errors) as `constrained_walk_full_crowd`."""
+    node_ids, errors) as `constrained_walk_full_crowd`, with its fifth
+    array under cfg.return_pre_lm_err."""
     cfg = cfg or cw.WalkConfig()
     if step_scs is None:
         step_scs = cw.default_step_scs(skeleton, n_steps)

@@ -2,21 +2,27 @@
 (port of morphablegraphs_tpu.serve.batch, single device).
 
 Each batchable request (one locomotion action following a root trajectory,
-no keyframe constraints) becomes one character of
-`constrained_walk_full_crowd`, with the JAX package's single-device serving
-flags: the selection kernel B1 (on CUDA; its plain twin on CPU) with
-n_samples rounded up to its tile of 128, root_only derived from the
-constraint sets, and the exact LM (lm_frozen=False), whose solves go
-through kernel B2.
+no keyframe constraints) becomes one character of a crowd walk.  With
+full_constraints (the default) that is `constrained_walk_full_crowd`,
+reached through `parallel.constrained_crowd_sharded` on the generator's one
+device as in the JAX package, with its single-device serving flags: the
+selection kernel B1 (on CUDA; its plain twin on CPU) while the constraint
+sets carry the locomotion family only, n_samples then rounded up to its
+tile of 128, root_only derived from the constraint sets, and the exact LM
+(lm_frozen=False), whose solves go through kernel B2.  Without
+full_constraints it is the boundary-row `constrained_walk_crowd`.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from .. import parallel
 from ..constraints import compiled
 from ..constraints.input_reader import read_input
 from ..models.graph import MotionStateGraph, stack_graph
@@ -52,12 +58,18 @@ class BatchedGenerator:
     """Collects parsed locomotion requests and synthesizes them in one
     crowd walk on `device`: the CUDA device unless the caller names
     another (device="cpu" runs the kernels' twins).  Without a card the
-    default raises."""
+    default raises.
+
+    full_constraints routes through `constrained_walk_full_crowd` (the
+    complete compiled constraint semantics and the gated LM; n_samples
+    rounded up to the selection kernel's tile of 128); False keeps the
+    boundary-row scorer of `constrained_walk_crowd` with n_samples as
+    given."""
 
     def __init__(self, graph: MotionStateGraph, config: Optional[dict] = None,
                  n_steps: int = 12, n_samples: int = 64,
-                 max_step_frames: int = 64, lm_iters: int = 3,
-                 device=None):
+                 max_step_frames: int = 64, full_constraints: bool = True,
+                 lm_iters: int = 3, device=None):
         self.graph = graph
         self.device = torch.device(device or "cuda")
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -67,8 +79,10 @@ class BatchedGenerator:
         self.stacked = stack_graph(graph, device=self.device)
         self.config = config or default_config()
         self.n_steps = n_steps
+        self.full_constraints = full_constraints
         # the selection kernel scores candidates in tiles of 128
-        self.n_samples = -(-n_samples // kernels.N_BLK) * kernels.N_BLK
+        self.n_samples = (-(-n_samples // kernels.N_BLK) * kernels.N_BLK
+                          if full_constraints else n_samples)
         self.max_step_frames = max_step_frames
         self.lm_iters = lm_iters
 
@@ -135,17 +149,27 @@ class BatchedGenerator:
                 unconstrained_dims=traj.unconstrained_dims,
                 device=self.device))
             start_ids.append(self._start_id(parsed.actions[0].name))
-        skel = self.graph.skeleton
-        step_scs = cw.default_step_scs(skel, self.n_steps)
-        if not compiled.step_scs_locomotion_only(step_scs):
-            raise ValueError("batched requests carry non-locomotion slots")
+        stacked_paths = spline_path.stack_paths(paths)
+        start = torch.tensor(start_ids, device=self.device)
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        segs, n_frames, _, _ = cw.constrained_walk_full_crowd(
-            skel, self.stacked, spline_path.stack_paths(paths),
-            torch.tensor(start_ids, device=self.device), self.n_steps,
-            draws=walk_mod.torch_sampler(gen, self.stacked, len(mg_inputs),
-                                         self.n_samples),
-            step_scs=step_scs, cfg=self.walk_config())
+        draws = walk_mod.torch_sampler(gen, self.stacked, len(mg_inputs),
+                                       self.n_samples)
+        if self.full_constraints:
+            skel = self.graph.skeleton
+            step_scs = cw.default_step_scs(skel, self.n_steps)
+            # the selection kernels rank on the locomotion family only: a
+            # batch path that adds user slots falls back to the general
+            # selection (the sets are empty today)
+            cfg = dataclasses.replace(
+                self.walk_config(),
+                pallas_selection=compiled.step_scs_locomotion_only(step_scs))
+            segs, n_frames, _, _ = parallel.constrained_crowd_sharded(
+                [self.device], skel, self.stacked, stacked_paths, start,
+                self.n_steps, draws, step_scs=step_scs, cfg=cfg)
+        else:
+            segs, n_frames, _, _ = cw.constrained_walk(
+                self.stacked, stacked_paths, start, self.n_steps, draws,
+                max_step_frames=self.max_step_frames)
         segs = segs.cpu().numpy()
         n_frames = n_frames.cpu().numpy()
         return [walk_mod.flatten_segments(segs[c], n_frames[c])

@@ -1,7 +1,9 @@
 """Constrained crowd walks (port of morphablegraphs_tpu.synthesis.
 constrained_walk): `constrained_walk_full` with the fused selection kernels
-(pallas_selection=True, and pallas_ee for one end-effector keyframe), and
-the lightweight boundary-row `constrained_walk`.
+(pallas_selection=True, and pallas_ee for one end-effector keyframe) or the
+general selection path (pallas_selection=False: every candidate through the
+exact evaluator, any user slot the residuals evaluate), and the lightweight
+boundary-row `constrained_walk`.
 
 The crowd is an explicit leading [C] axis and the JAX scan a Python loop
 over `full_walk_step`.  Per step and character:
@@ -10,6 +12,7 @@ over `full_walk_step`.  Per step and character:
   2. n_samples GMM candidates are ranked by kernel B1 (with an end-effector
      keyframe, B3), and the winner is re-scored by the exact evaluator
      (root-only, or the dense FK pass when a slot is on another joint);
+     without pallas_selection the exact evaluator ranks them itself;
   3. where that error is >= lm_threshold, lm_iters LM iterations refine it,
      kept only if the exact error improves: the exact LM by default, or the
      frozen-correspondence LM (closed form or linearize form).  The normal
@@ -18,9 +21,9 @@ over `full_walk_step`.  Per step and character:
      term from kernel B5 (the closed frozen form its gradient too, the
      exact and linearize forms through `kernels.gmm_nll`).  The JAX
      lax.cond gate is a masked select per character, as under vmap;
-  4. the winner is back-projected with time warping (kernel B6), aligned
-     and seam-smoothed, the travelled arc advances, and the next node is
-     drawn.
+  4. the winner is back-projected with time warping, aligned and
+     seam-smoothed (`kernels.emit_frames`: one kernel on a CUDA device), the
+     travelled arc advances, and the next node is drawn.
 Random draws come in through `walk.StepDraws`, so a caller can replay
 another generator's noise.
 """
@@ -58,40 +61,65 @@ class StepOutput:
     n_frames: torch.Tensor  # [C] int32 valid frames (0 once done)
     node_id: torch.Tensor  # [C] node of this step (-1 once done)
     error: torch.Tensor  # [C] constraint error of the emitted latent
+    # [C] the best-of-N selection error before the LM (full walk only)
+    pre_lm_error: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
 class WalkConfig:
-    """The settings callers choose; defaults are constrained_walk_full's.
+    """The settings callers choose; defaults are constrained_walk_full's,
+    but for pallas_selection.
 
+    pallas_selection: rank the candidates with the selection kernels (B1, or
+    with pallas_ee B3), which score the locomotion family only, and re-score
+    the winner exactly.  True here, because the port's main path runs the
+    kernels; the JAX package's default is False.  Without it every
+    candidate goes through the exact evaluator, n_samples need not be a
+    multiple of 128, and any user slot the residuals evaluate may be set.
     pallas_ee: joint name of the one end-effector keyframe (user slot 2)
     that selection scores with kernel B3; lm_frozen: the frozen-
     correspondence LM instead of the exact one, in its closed form when
     lm_frozen_closed (else the linearize form); frozen_ee: the end-effector
     joint the frozen LM models beside the root; lm_fused_step: the LM step
     block as kernel B4 (the JAX package's MG_LM_PALLAS_DELTA=1), else its
-    solve through kernel B2."""
+    solve through kernel B2.
+
+    window: frames of seam smoothing (0: none); error_scale, quality_scale:
+    the LM's weights of the constraint residuals and of the GMM naturalness
+    term; step_length_factor: the step goal in average step lengths;
+    end_threshold: arc left on the path from which the walk heads for its
+    end; pos_weight, dir_weight, traj_weight: weights of the goal keyframe,
+    the 2D direction and the trajectory; use_traj: evaluate the trajectory
+    family; root_node: skeleton index of the joint that follows the path;
+    return_pre_lm_err: also return each step's best-of-N selection error
+    before the LM."""
 
     max_step_frames: int = 128
     n_samples: int = 128
     lm_iters: int = 5
     lm_threshold: float = 0.0
+    pallas_selection: bool = True
     pallas_ee: Optional[str] = None
     lm_frozen: bool = False
     lm_frozen_closed: bool = True
     frozen_ee: Optional[str] = None
     lm_fused_step: bool = False
+    window: int = 20
+    error_scale: float = 1.0
+    quality_scale: float = 0.1
+    step_length_factor: float = 1.0
+    end_threshold: float = 20.0
+    pos_weight: float = 1.0
+    dir_weight: float = 0.8
+    traj_weight: float = 1.0
+    use_traj: bool = True
+    root_node: int = 0
+    return_pre_lm_err: bool = False
 
 
-# constrained_walk_full's defaults for the settings no caller of the port
-# changes: seam-smoothing window, LM residual and naturalness scales, step
-# length factor, end-of-path threshold, constraint weights, root node
-WINDOW = 20
-ERROR_SCALE, QUALITY_SCALE = 1.0, 0.1
-STEP_LENGTH_FACTOR = 1.0
-END_THRESHOLD = 20.0
-POS_WEIGHT, DIR_WEIGHT, TRAJ_WEIGHT = 1.0, 0.8, 1.0
-ROOT_NODE = 0
+# rows (characters x candidates) the general selection path evaluates at
+# once; a crowd with more goes through the exact evaluator in chunks
+MAX_EXACT_ROWS = 32768
 
 
 def stack_steps(base: compiled.StepConstraints, n_steps: int):
@@ -132,11 +160,19 @@ def check_pallas_selection_contract(skeleton: Skeleton, step_scs,
 
 def check_walk_contract(skeleton: Skeleton, step_scs, cfg: WalkConfig,
                         root_only: bool):
-    """The host-side guards of constrained_walk_full_crowd: the selection
-    contract, and the frozen LM's model (root-only slots, or root slots plus
-    one position-only keyframe on frozen_ee in slot 2; the closed form
-    would score a slot on any other joint against the root)."""
-    check_pallas_selection_contract(skeleton, step_scs, cfg.pallas_ee)
+    """The host-side guards of constrained_walk_full_crowd: with
+    cfg.pallas_selection the selection kernels' contract (n_samples in
+    tiles of 128, no user slot they would ignore), and the frozen LM's
+    model (root-only slots, or root slots plus one position-only keyframe
+    on frozen_ee in slot 2; the closed form would score a slot on any
+    other joint against the root)."""
+    if cfg.pallas_selection:
+        if cfg.n_samples % kernels.N_BLK != 0:
+            raise ValueError(
+                f"pallas_selection needs n_samples % {kernels.N_BLK} == 0")
+        check_pallas_selection_contract(skeleton, step_scs, cfg.pallas_ee)
+    elif cfg.pallas_ee is not None:
+        raise ValueError("pallas_ee requires pallas_selection")
     if cfg.lm_frozen and not root_only:
         if cfg.frozen_ee is None:
             raise ValueError("lm_frozen needs root-only slots or a single "
@@ -191,16 +227,45 @@ def _aligned_coeffs(g: StackedGraph, node_id, sc, s, root_only: bool = True):
 
 
 def exact_error(skeleton: Skeleton, g: StackedGraph, node_id, sc, s,
-                root_only: bool = True):
+                root_only: bool = True, use_traj: bool = True):
     """Exact constraint error [C] of latents s [C, L] (the JAX package's
     stacked_error with use_ca=False: root-only, or the dense FK pass)."""
     return compiled.error_from_residuals(compiled.residuals_from_coeffs(
         skeleton, g.knots_s[node_id], sc,
-        _aligned_coeffs(g, node_id, sc, s, root_only), root_only))
+        _aligned_coeffs(g, node_id, sc, s, root_only), root_only, use_traj))
+
+
+def _repeat_rows(tree, n: int):
+    """A dataclass of [C, ...] tensors with every row repeated n times, the
+    copies side by side ([C * n, ...]); nested dataclasses (the trajectory)
+    likewise."""
+    kw = {}
+    for f in dataclasses.fields(tree):
+        v = getattr(tree, f.name)
+        kw[f.name] = (_repeat_rows(v, n) if dataclasses.is_dataclass(v)
+                      else v.repeat_interleave(n, dim=0))
+    return type(tree)(**kw)
+
+
+def _rank_exact(skeleton, g, node, sc, samples, root_only: bool,
+                use_traj: bool):
+    """The general selection path (the JAX walk's vmapped stacked_error):
+    the exact error of every candidate, samples [C, N, L] -> [C, N], in
+    chunks of candidates where C * N rows pass MAX_EXACT_ROWS."""
+    c, n, _ = samples.shape
+    per = max(1, min(n, MAX_EXACT_ROWS // max(c, 1)))
+    errors = []
+    for j0 in range(0, n, per):
+        sub = samples[:, j0: j0 + per]
+        m = sub.shape[1]
+        errors.append(exact_error(
+            skeleton, g, node.repeat_interleave(m), _repeat_rows(sc, m),
+            sub.reshape(c * m, -1), root_only, use_traj).reshape(c, m))
+    return torch.cat(errors, dim=1)
 
 
 def _select(g, state, sc, samples, path, path_table, goal_arc,
-            n_can_f, root_off, ee=None):
+            n_can_f, root_off, cfg: WalkConfig, ee=None):
     """Rank candidates with kernel B1, or with ee = (chain_idx, chain [L, 8])
     kernel B3 scoring the end-effector slot 2 too -> winner latents
     [C, L]."""
@@ -220,8 +285,9 @@ def _select(g, state, sc, samples, path, path_table, goal_arc,
         path, align.heading_angle(state.prev_last[:, 3:7]),
         state.prev_last[:, :3], align.heading_angle(sc.start_q),
         sc.start_delta, sc.has_prev, goal_pos, goal_dir, state.travelled,
-        kf_weight=POS_WEIGHT, dir_weight=DIR_WEIGHT,
-        traj_active=1.0, traj_weight=TRAJ_WEIGHT,
+        kf_weight=cfg.pos_weight, dir_weight=cfg.dir_weight,
+        traj_active=1.0 if cfg.use_traj else 0.0,
+        traj_weight=cfg.traj_weight,
         range_lo=sc.traj_range_start, range_hi=sc.traj_range_end,
         root_offset=root_off, **ee_kw)
     errors = kernels.score_locomotion_candidates(
@@ -232,29 +298,32 @@ def _select(g, state, sc, samples, path, path_table, goal_arc,
                    best]
 
 
-def _lm_mask(sc) -> torch.Tensor:
+def _lm_mask(sc, use_traj: bool = True) -> torch.Tensor:
     """The LM's residual mask: active slots of the families the walk
-    evaluates (use_traj=True, use_ca=use_ts=False)."""
+    evaluates (use_traj as asked, use_ca=use_ts=False)."""
     return compiled.active_mask(sc) * torch.as_tensor(
-        compiled.static_family_gate(use_traj=True, use_ca=False,
+        compiled.static_family_gate(use_traj=use_traj, use_ca=False,
                                     use_ts=False), device=sc.kf_active.device)
 
 
 def lm_residual_fn(skeleton: Skeleton, g: StackedGraph, node_id, sc,
-                   root_only: bool):
+                   root_only: bool, cfg: Optional[WalkConfig] = None):
     """The exact LM's residual function s [C, L] -> [C, R]: the masked
     constraint residuals plus the GMM naturalness term -log p(s), as JAX
     constrained_walk_full's `residuals`.  The GMM term is `kernels.gmm_nll`:
     one launch of kernel B5 per evaluation, whose gradient gives all the
-    jacobian columns of the term under `lm.linearize`."""
-    act = _lm_mask(sc)
+    jacobian columns of the term under `lm.linearize`.  cfg gives
+    error_scale, quality_scale and use_traj (default: WalkConfig's)."""
+    cfg = cfg or WalkConfig()
+    act = _lm_mask(sc, cfg.use_traj)
+    es, qs = cfg.error_scale, cfg.quality_scale
 
     def residuals(sv):
         r = compiled.residuals_from_coeffs(
             skeleton, g.knots_s[node_id], sc,
-            _aligned_coeffs(g, node_id, sc, sv, root_only), root_only)
-        return act * (ERROR_SCALE * r + QUALITY_SCALE * _gmm_nll(
-            g, node_id, sv)[:, None])
+            _aligned_coeffs(g, node_id, sc, sv, root_only), root_only,
+            cfg.use_traj)
+        return act * (es * r + qs * _gmm_nll(g, node_id, sv)[:, None])
 
     return residuals
 
@@ -265,13 +334,13 @@ def _refine(skeleton, g, node_id, sc, s0, e0, cfg: WalkConfig,
     `refine`): the exact LM, or with cfg.lm_frozen the frozen model in its
     closed or linearize form.  Returns (s, err) where the exact error
     improved, else (s0, e0)."""
-    act = _lm_mask(sc)
-    es, qs = ERROR_SCALE, QUALITY_SCALE
+    act = _lm_mask(sc, cfg.use_traj)
+    es, qs = cfg.error_scale, cfg.quality_scale
     lm_kw = dict(fused_step=cfg.lm_fused_step)
 
     if not cfg.lm_frozen:
         s_opt, _ = lm.lm_minimize(
-            lm_residual_fn(skeleton, g, node_id, sc, root_only), s0,
+            lm_residual_fn(skeleton, g, node_id, sc, root_only, cfg), s0,
             cfg.lm_iters, **lm_kw)
     else:
         ee_idx = (skeleton.index_of(cfg.frozen_ee)
@@ -314,7 +383,8 @@ def _refine(skeleton, g, node_id, sc, s0, e0, cfg: WalkConfig,
 
             s_opt, _ = lm.lm_minimize(None, s0, cfg.lm_iters,
                                       make_residual_fn=make_fn, **lm_kw)
-    e_opt = exact_error(skeleton, g, node_id, sc, s_opt, root_only)
+    e_opt = exact_error(skeleton, g, node_id, sc, s_opt, root_only,
+                        cfg.use_traj)
     better = e_opt < e0
     return (torch.where(better[:, None], s_opt, s0),
             torch.minimum(e0, e_opt))
@@ -342,28 +412,42 @@ def full_walk_step(skeleton: Skeleton, g: StackedGraph,
     # each stage runs under a profiler range (walk.*) that a
     # torch.profiler trace reads; outside a trace a range costs ~1 us
     with record_function("walk.goal"):
-        goal_arc = _goal_arc(g, state, path.full_arc_length)
+        goal_arc = _goal_arc(g, state, path.full_arc_length,
+                             cfg.step_length_factor, cfg.end_threshold)
         sc = sc0.replace(
-            traj=path, traj_active=torch.ones(c, device=dev),
-            traj_node=torch.full((c,), ROOT_NODE, device=dev),
+            traj=path,
+            traj_active=torch.full((c,), 1.0 if cfg.use_traj else 0.0,
+                                   device=dev),
+            traj_node=torch.full((c,), cfg.root_node, device=dev),
             traj_min_arc=state.travelled,
-            traj_weight=torch.full((c,), TRAJ_WEIGHT, device=dev),
+            traj_weight=torch.full((c,), cfg.traj_weight, device=dev),
             n_canonical=n_can_f, prev_last=state.prev_last,
             has_prev=torch.full((c,), has_prev, device=dev))
         sc = compiled.fill_locomotion_slots(sc, path, compiled.LocoSpec(
-            goal_arc=goal_arc, node=ROOT_NODE, end_kf=n_can_f - 1.0,
+            goal_arc=goal_arc, node=cfg.root_node, end_kf=n_can_f - 1.0,
             dim_mask=torch.tensor([1.0, 0.0, 1.0], device=dev),
-            pos_weight=POS_WEIGHT, dir_weight=DIR_WEIGHT))
+            pos_weight=cfg.pos_weight, dir_weight=cfg.dir_weight))
 
-    # ---- best of n_samples by kernel B1, exact re-score of the winner
     with record_function("walk.sample"):
         samples = walk_mod.sample_node_latents(g, node, draws.comp_gumbel,
                                                draws.normal)
-    with record_function("walk.select"):
-        s = _select(g, state, sc, samples, path, path_table, goal_arc,
-                    n_can_f, root_off, ee_chain)
-    with record_function("walk.rescore"):
-        err = exact_error(skeleton, g, node, sc, s, root_only)
+    if cfg.pallas_selection:
+        # best of n_samples by kernel B1 (B3), exact re-score of the winner
+        with record_function("walk.select"):
+            s = _select(g, state, sc, samples, path, path_table, goal_arc,
+                        n_can_f, root_off, cfg, ee_chain)
+        with record_function("walk.rescore"):
+            err = exact_error(skeleton, g, node, sc, s, root_only,
+                              cfg.use_traj)
+    else:
+        # the general path: the exact evaluator ranks, its error is kept
+        with record_function("walk.select"):
+            errors = _rank_exact(skeleton, g, node, sc, samples, root_only,
+                                 cfg.use_traj)
+            best = torch.argmin(errors, dim=1)
+            rows = torch.arange(c, device=dev)
+            s, err = samples[rows, best], errors[rows, best]
+    err_pre = err  # best-of-N selection error, before any LM
 
     # ---- gated LM refinement
     if cfg.lm_iters > 0:
@@ -374,51 +458,48 @@ def full_walk_step(skeleton: Skeleton, g: StackedGraph,
             s = torch.where(gate[:, None], s_ref, s)
             err = torch.where(gate, err_ref, err)
 
-    return _emit_step(g, path, state, s, err, step_idx > 0,
-                      cfg.max_step_frames, draws.trans_gumbel)
+    state, out = _emit_step(g, path, state, s, err, step_idx > 0,
+                            cfg.max_step_frames, draws.trans_gumbel,
+                            cfg.window, cfg.end_threshold)
+    out.pre_lm_error = err_pre
+    return state, out
 
 
-def _goal_arc(g: StackedGraph, state: WalkState,
-              full_arc: torch.Tensor) -> torch.Tensor:
-    """The step's goal on the path: one average step of the node past the
-    travelled arc, or the path's end once that is within END_THRESHOLD."""
-    step_len = g.avg_step_length[state.node_id] * STEP_LENGTH_FACTOR
-    near_end = state.travelled + step_len >= full_arc - END_THRESHOLD
+def _goal_arc(g: StackedGraph, state: WalkState, full_arc: torch.Tensor,
+              step_length_factor: float = 1.0,
+              end_threshold: float = 20.0) -> torch.Tensor:
+    """The step's goal on the path: step_length_factor average steps of the
+    node past the travelled arc, or the path's end once that is within
+    end_threshold."""
+    step_len = g.avg_step_length[state.node_id] * step_length_factor
+    near_end = state.travelled + step_len >= full_arc - end_threshold
     return torch.where(near_end, full_arc, state.travelled + step_len)
 
 
 def _emit_step(g: StackedGraph, path: spline_path.PathSpline,
                state: WalkState, s: torch.Tensor, err: torch.Tensor,
                has_prev: bool, max_step_frames: int,
-               trans_gumbel: torch.Tensor):
+               trans_gumbel: torch.Tensor, window: int = 20,
+               end_threshold: float = 20.0):
     """The constrained walks' shared step end: back-project the chosen
-    latents s [C, L] with time warping (kernel B6), align and seam-smooth
-    them against the previous step, advance the travelled arc, draw the
-    next node -> (new WalkState, StepOutput)."""
-    dev = state.travelled.device
-    c = state.node_id.shape[0]
+    latents s [C, L] with time warping, align and seam-smooth them against
+    the previous step (`kernels.emit_frames`: the time function in torch,
+    the rest one kernel on a CUDA device), advance the travelled arc, draw
+    the next node -> (new WalkState, StepOutput)."""
     node = state.node_id
     full_arc = path.full_arc_length
     with record_function("walk.back_project"):
-        frames, n_frames = walk_mod.back_project_node(g, node, s,
-                                                      max_step_frames)
-        if has_prev:
-            q_y, delta = align.node_aligning_2d_transform(state.prev_last,
-                                                          frames[:, 0])
-        else:
-            q_y = torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev).expand(c, 4)
-            delta = torch.zeros((c, 3), device=dev)
-        aligned = align.transform_frames(frames, q_y, delta)
-        if has_prev:
-            aligned = align.smooth_transition(state.prev_last, aligned,
-                                              WINDOW)
-        last_idx = torch.clamp(n_frames - 1, min=0).long()
-        new_last = aligned[torch.arange(c, device=dev), last_idx]
+        t_fn, n_frames = walk_mod.warped_time(g, node, s[:, g.k_s_max:],
+                                              max_step_frames)
+        aligned, new_last = kernels.emit_frames(
+            s[:, : g.k_s_max], g.eigen_s, g.mean_s, g.knots_s, node, t_fn,
+            n_frames, state.prev_last if has_prev else None, has_prev,
+            window)
 
     with record_function("walk.advance"):
         _, new_arc, _ = spline_path.closest_point(path, new_last[:, :3],
                                                   state.travelled)
-        want_end = new_arc >= full_arc - END_THRESHOLD
+        want_end = new_arc >= full_arc - end_threshold
         type_id = torch.where(want_end, TRANSITION_TYPE_IDS[NODE_TYPE_END],
                               TRANSITION_TYPE_IDS[NODE_TYPE_STANDARD])
         next_id, found = walk_mod.choose_transition(g, node, type_id,
@@ -454,10 +535,10 @@ def constrained_walk_full_crowd(skeleton: Skeleton, g: StackedGraph,
     own generator); step_scs: host-side per-step constraint sets with a
     leading [n_steps] axis (numpy leaves).  root_only is derived here from
     step_scs, as every JAX caller does.  Returns (segments [C, S, T, D],
-    n_frames [C, S], node_ids [C, S], errors [C, S])."""
+    n_frames [C, S], node_ids [C, S], errors [C, S]), and with
+    cfg.return_pre_lm_err a fifth array [C, S]: each step's best-of-N
+    selection error before the LM."""
     cfg = cfg or WalkConfig()
-    if cfg.n_samples % kernels.N_BLK != 0:
-        raise ValueError(f"n_samples must be a multiple of {kernels.N_BLK}")
     if step_scs is None:
         step_scs = default_step_scs(skeleton, n_steps)
     root_only = compiled.step_scs_root_only(step_scs)
@@ -478,6 +559,15 @@ def constrained_walk_full_crowd(skeleton: Skeleton, g: StackedGraph,
                                     t, sc0, draws(t), cfg, root_only,
                                     ee_chain)
         outs.append(out)
+    result = _stack_outputs(outs)
+    if cfg.return_pre_lm_err:
+        result += (torch.stack([o.pre_lm_error for o in outs], dim=1),)
+    return result
+
+
+def _stack_outputs(outs):
+    """Per-step StepOutputs -> (segments [C, S, T, D], n_frames [C, S],
+    node_ids [C, S], errors [C, S])."""
     return (torch.stack([o.frames for o in outs], dim=1),
             torch.stack([o.n_frames for o in outs], dim=1),
             torch.stack([o.node_id for o in outs], dim=1),
@@ -505,7 +595,7 @@ def _boundary_rows(g: StackedGraph, node_id: torch.Tensor):
 def _score_candidates(g: StackedGraph, node_id: torch.Tensor,
                       samples: torch.Tensor, prev_last: torch.Tensor,
                       goal_pos: torch.Tensor, goal_dir: torch.Tensor,
-                      has_prev: bool, dir_weight: float = DIR_WEIGHT):
+                      has_prev: bool, dir_weight: float = 0.8):
     """End-position (XZ) plus weighted end-heading error (degrees) of each
     candidate's last frame after its own 2D alignment to the previous step:
     samples [C, N, L], prev_last [C, D], goal_pos [C, 3], goal_dir [C, 2]
@@ -533,7 +623,9 @@ def _score_candidates(g: StackedGraph, node_id: torch.Tensor,
 def constrained_walk(g: StackedGraph, paths: spline_path.PathSpline,
                      start_ids: torch.Tensor, n_steps: int,
                      draws: Callable[[int], walk_mod.StepDraws],
-                     max_step_frames: int = 128):
+                     max_step_frames: int = 128, window: int = 20,
+                     step_length_factor: float = 1.0,
+                     end_threshold: float = 20.0):
     """Crowd walks that follow their paths with the boundary-row selection
     (the JAX package's `constrained_walk`, bench.py's toy config): per step
     the goal one average step along the path, the best of the step's GMM
@@ -541,9 +633,10 @@ def constrained_walk(g: StackedGraph, paths: spline_path.PathSpline,
     winner back-projected, aligned and smoothed, the arc advanced.
 
     paths [C] leading axis; draws(step) supplies StepDraws, one candidate
-    per draw (the JAX walk's n_samples, default 64).  Returns (segments
-    [C, S, T, D], n_frames [C, S], node_ids [C, S], errors [C, S], the
-    winners' selection errors)."""
+    per draw (the JAX walk's n_samples, default 64); window,
+    step_length_factor and end_threshold as in WalkConfig.  Returns
+    (segments [C, S, T, D], n_frames [C, S], node_ids [C, S], errors
+    [C, S], the winners' selection errors)."""
     dev = start_ids.device
     c = start_ids.shape[0]
     rows = torch.arange(c, device=dev)
@@ -553,7 +646,8 @@ def constrained_walk(g: StackedGraph, paths: spline_path.PathSpline,
         d = draws(t)
         with record_function("walk.goal"):
             goal_pos, goal_dir = spline_path.point_and_dir_at_arc_length(
-                paths, _goal_arc(g, state, paths.full_arc_length))
+                paths, _goal_arc(g, state, paths.full_arc_length,
+                                 step_length_factor, end_threshold))
         with record_function("walk.sample"):
             samples = walk_mod.sample_node_latents(g, state.node_id,
                                                    d.comp_gumbel, d.normal)
@@ -564,12 +658,9 @@ def constrained_walk(g: StackedGraph, paths: spline_path.PathSpline,
             best = torch.argmin(errors, dim=1)
         state, out = _emit_step(g, paths, state, samples[rows, best],
                                 errors[rows, best], t > 0, max_step_frames,
-                                d.trans_gumbel)
+                                d.trans_gumbel, window, end_threshold)
         outs.append(out)
-    return (torch.stack([o.frames for o in outs], dim=1),
-            torch.stack([o.n_frames for o in outs], dim=1),
-            torch.stack([o.node_id for o in outs], dim=1),
-            torch.stack([o.error for o in outs], dim=1))
+    return _stack_outputs(outs)
 
 
 def constrained_walk_crowd(g: StackedGraph, paths: spline_path.PathSpline,

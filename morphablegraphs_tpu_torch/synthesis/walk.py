@@ -7,8 +7,9 @@ over steps.  Random choices take their noise as arguments:
 `jax.random.categorical` is argmax(logits + Gumbel noise), so a component
 or a transition is argmax(logits + gumbel) here, with the noise drawn by
 the caller (`StepDraws`, from `torch_sampler` or replayed from another
-generator).  Every step's back-projection runs kernel B6 on a CUDA device
-(`kernels.crowd_back_project`)."""
+generator).  Every step's back-projection runs on a CUDA device in the
+frame-emit kernel (`kernels.emit_frames`), or for the canonical timeline in
+kernel B6 (`kernels.crowd_back_project`)."""
 
 from __future__ import annotations
 
@@ -89,40 +90,57 @@ def sample_node_latent(g: StackedGraph, node_id: torch.Tensor,
                                normal[:, None])[:, 0]
 
 
-def warped_basis(g: StackedGraph, node_id: torch.Tensor, gamma: torch.Tensor,
-                 max_frames: int, use_time: bool = True, speed: float = 1.0):
-    """B-spline basis of each character's timeline and its frame count:
-    (basis [C, max_frames, n_basis], n_frames [C] int32).  use_time warps
-    the timeline by the temporal latents gamma [C, k_t] (at `speed`);
-    otherwise it is linspace(0, F, F/speed) over the node's F canonical
-    frames."""
+def warped_time(g: StackedGraph, node_id: torch.Tensor, gamma: torch.Tensor,
+                max_frames: int, use_time: bool = True, speed: float = 1.0):
+    """Each character's timeline and its frame count: (t_fn [C, max_frames]
+    canonical times, n_frames [C] int32).  use_time warps the timeline by
+    the temporal latents gamma [C, k_t] (at `speed`); otherwise it is
+    linspace(0, F, F/speed) over the node's F canonical frames."""
     n_can = g.n_canonical[node_id]
     if use_time:
         t_can = timewarp.canonical_time_function_masked(
             g.mean_t_d[node_id], g.eigen_t_d[node_id], gamma, n_can)
-        t_fn, n_frames = timewarp.invert_time_function_dynamic(
-            t_can, n_can, max_frames, speed)
-    else:
-        n_can_f = n_can.float()
-        num = torch.clamp(torch.floor(n_can_f * (1.0 / speed)), min=2.0)
-        i = torch.arange(max_frames, dtype=torch.float32,
-                         device=n_can.device)
-        t_fn = torch.minimum(i * (n_can_f / (num - 1.0))[:, None],
-                             (n_can_f - 1.0)[:, None])
-        n_frames = torch.clamp(num.to(torch.int32), max=max_frames)
+        return timewarp.invert_time_function_dynamic(t_can, n_can, max_frames,
+                                                     speed)
+    n_can_f = n_can.float()
+    num = torch.clamp(torch.floor(n_can_f * (1.0 / speed)), min=2.0)
+    i = torch.arange(max_frames, dtype=torch.float32, device=n_can.device)
+    t_fn = torch.minimum(i * (n_can_f / (num - 1.0))[:, None],
+                         (n_can_f - 1.0)[:, None])
+    return t_fn, torch.clamp(num.to(torch.int32), max=max_frames)
+
+
+def warped_basis(g: StackedGraph, node_id: torch.Tensor, gamma: torch.Tensor,
+                 max_frames: int, use_time: bool = True, speed: float = 1.0):
+    """B-spline basis of each character's timeline (`warped_time`) and its
+    frame count: (basis [C, max_frames, n_basis], n_frames [C] int32)."""
+    t_fn, n_frames = warped_time(g, node_id, gamma, max_frames, use_time,
+                                 speed)
     return bspline.basis_matrix(g.knots_s[node_id], t_fn), n_frames
 
 
 def back_project_node(g: StackedGraph, node_id: torch.Tensor,
                       s: torch.Tensor, max_frames: int, use_time: bool = True,
                       speed: float = 1.0):
-    """Back-project latents s [C, L] at nodes node_id [C] (kernel B6 on a
-    CUDA device) -> (frames [C, max_frames, n_dim], n_frames [C] int32);
-    use_time and speed as in `warped_basis`."""
-    basis, n_frames = warped_basis(g, node_id, s[:, g.k_s_max:], max_frames,
-                                   use_time, speed)
-    return kernels.crowd_back_project(s[:, : g.k_s_max], g.eigen_s, g.mean_s,
-                                      basis, mix_id=node_id), n_frames
+    """Back-project latents s [C, L] at nodes node_id [C] -> (frames
+    [C, max_frames, n_dim], n_frames [C] int32); use_time and speed as in
+    `warped_time`.  On a CUDA device the time-warped form takes its basis
+    weights inside the kernel (`kernels.emit_frames` without a previous
+    clip: no basis tensor is built); the canonical timeline (use_time
+    False), which holds no per-character latent, goes through its basis
+    and kernel B6 (`kernels.crowd_back_project`).  The twins of both give
+    the same frames on the CPU."""
+    alphas = s[:, : g.k_s_max]
+    if not use_time:
+        basis, n_frames = warped_basis(g, node_id, s[:, g.k_s_max:],
+                                       max_frames, use_time, speed)
+        return kernels.crowd_back_project(alphas, g.eigen_s, g.mean_s, basis,
+                                          mix_id=node_id), n_frames
+    t_fn, n_frames = warped_time(g, node_id, s[:, g.k_s_max:], max_frames,
+                                 use_time, speed)
+    frames, _ = kernels.emit_frames(alphas, g.eigen_s, g.mean_s, g.knots_s,
+                                    node_id, t_fn, n_frames, None, False, 0)
+    return frames, n_frames
 
 
 def choose_transition(g: StackedGraph, node_id: torch.Tensor,

@@ -389,3 +389,105 @@ def test_lm_delta_kernel_widths(cuda, k):
     torch.testing.assert_close(d, kernels.lm_delta_ref(j, r, lam, rad),
                                rtol=2e-3, atol=2e-4)
     assert bool((d[:2] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,k,nb,nd,t", [(37, 6, 5, 11, 33),
+                                         (300, 24, 16, 79, 64),
+                                         (5, 3, 16, 10, 7),
+                                         (1, 25, 16, 79, 160),
+                                         (700, 7, 9, 23, 50)])
+def test_back_project_kernel_shapes(cuda, c, k, nb, nd, t):
+    """B6 beyond the walk's shape: other coefficient counts than 16 (the
+    shared-memory path), even latent widths (a padded chunk stride), frame
+    widths that do not fill their last quad, crowds smaller and larger than
+    a block's group; a node id outside the table gives NaN rows."""
+    gen = torch.Generator(device=cuda).manual_seed(c + k)
+    e = torch.randn((3, nb * nd, k), generator=gen, device=cuda)
+    m = torch.randn((3, nb * nd), generator=gen, device=cuda)
+    a = torch.randn((c, k), generator=gen, device=cuda)
+    b = torch.randn((c, t, nb), generator=gen, device=cuda)
+    mix = torch.randint(0, 3, (c,), generator=gen, device=cuda)
+    out = kernels.crowd_back_project(a, e, m, b, mix_id=mix)
+    ref = kernels.crowd_back_project_ref(a, e, m, b, mix_id=mix)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    bad = mix.clone()
+    bad[0] = 3
+    out = kernels.crowd_back_project(a, e, m, b, mix_id=bad)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(out[0]).all())
+    torch.testing.assert_close(out[1:], ref[1:], rtol=1e-4, atol=1e-4)
+
+
+def _emit_inputs(st, device, c, t_max, seed, has_prev):
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def draw():
+        node = torch.randint(0, st.n_nodes, (c,), generator=gen,
+                             device=device)
+        d = walk.torch_sampler(gen, st, c, 1)(0)
+        return node, walk.sample_node_latent(st, node, d.comp_gumbel[:, 0],
+                                             d.normal[:, 0])
+    node, s = draw()
+    k = st.k_s_max
+    t_fn, n_frames = walk.warped_time(st, node, s[:, k:], t_max)
+    prev = None
+    if has_prev:
+        node_p, s_p = draw()
+        t_p, n_p = walk.warped_time(st, node_p, s_p[:, k:], t_max)
+        prev = kernels.emit_frames_ref(
+            s_p[:, :k].contiguous(), st.eigen_s, st.mean_s, st.knots_s,
+            node_p, t_p, n_p, None, False, 0)[1].contiguous()
+    return (s[:, :k].contiguous(), st.eigen_s, st.mean_s, st.knots_s, node,
+            t_fn, n_frames, prev, has_prev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,t_max", [(1024, 160), (8, 64), (3, 160),
+                                     (530, 37)])
+@pytest.mark.parametrize("has_prev,window", [(False, 20), (True, 20),
+                                             (True, 0), (True, 200)])
+def test_emit_kernel_matches_twin(cuda, has_prev, window, c, t_max):
+    """The frame-emit kernel against its twin on the reference-scale model:
+    frames and the carried last frame within 1e-3 + 1e-5 |x| (B6's bound),
+    leaving out the joints whose quaternion lies within 1e-4 of the equator
+    of the previous frame's in some frame of the twin (either hemisphere
+    sign is the same rotation); crowds of one block's group and less, a
+    smoothing window of 0 and one past the clip; the launch is counted."""
+    st = _ref_stacked(cuda)
+    args = _emit_inputs(st, cuda, c, t_max, 3 * c + t_max, has_prev)
+    before = kernels.launch_counts()["emit_frames"]
+    f_k, l_k = kernels.emit_frames(*args, window)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["emit_frames"] == before + 1
+    f_t, l_t = kernels.emit_frames_ref(*args, window)
+    keep = torch.ones((c, st.n_dim), dtype=torch.bool, device=cuda)
+    if has_prev:
+        aligned = kernels.emit_frames_ref(*args, 0)[0]
+        dots = (aligned[:, :, 3:].reshape(c, t_max, -1, 4)
+                * args[7][:, None, 3:].reshape(c, 1, -1, 4)).sum(-1)
+        near = (dots.abs() < 1e-4).any(1)
+        assert float(near.float().mean()) < 0.01
+        keep[:, 3:] = (~near).repeat_interleave(4, dim=1)
+    for out, ref in ((f_k, f_t), (l_k[:, None], l_t[:, None])):
+        err = (out - ref).abs() * keep[:, None]
+        assert bool((err <= 1e-3 + 1e-5 * ref.abs()).all()), float(err.max())
+
+
+@pytest.mark.cuda
+def test_constrained_walk_emits_through_the_kernel(cuda):
+    """A constrained crowd on the card launches the emit kernel once a step
+    and kernel B6 never; the canonical timeline launches B6."""
+    st = _ref_stacked(cuda)
+    start = torch.zeros(16, dtype=torch.long, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    kernels.reset_launch_counts()
+    walk.random_walk_segments(st, start, 3, walk.torch_sampler(gen, st, 16, 1),
+                              max_step_frames=64)
+    counts = kernels.launch_counts()
+    assert counts["emit_frames"] == 3 and counts["crowd_back_project"] == 0
+    kernels.reset_launch_counts()
+    walk.random_walk_segments(st, start, 3, walk.torch_sampler(gen, st, 16, 1),
+                              max_step_frames=64, use_time=False)
+    counts = kernels.launch_counts()
+    assert counts["emit_frames"] == 0 and counts["crowd_back_project"] == 3

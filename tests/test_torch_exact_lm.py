@@ -314,6 +314,56 @@ def test_rows_cholesky_emulation_matches_twin_and_jax(k, width):
     assert np.all(x[-3:] == 0.0)
 
 
+def _lane_rows_lm_delta(j, r, lam, rad, width):
+    """Kernel B4's register route in numpy float32: lane i builds row i of
+    JtJ and entry i of Jt r one residual row at a time (a[p] += J[r][i] *
+    J[r][p] over the row padded to `width` with zeros), damps its own
+    diagonal with the relative floor, pads lanes past k with a unit
+    diagonal, solves with the register Cholesky and clips the step."""
+    f = np.float32
+    c, n_res, k = j.shape
+    jp = np.zeros((c, n_res, width), f)
+    jp[:, :, :k] = j
+    a = np.zeros((c, width, width), f)
+    g = np.zeros((c, width), f)
+    for rr in range(n_res):
+        ji = jp[:, rr, :, None]  # the lane's own column entry
+        a = (ji * jp[:, rr, None, :] + a).astype(f)
+        g = (jp[:, rr] * r[:, rr, None] + g).astype(f)
+    dg = np.einsum("cii->ci", a).copy()
+    floor = np.maximum(f(kernels.DAMP_FLOOR_REL) * dg[:, :k].max(1), f(1e-6))
+    damped = (dg + lam[:, None] * np.maximum(dg, floor[:, None])).astype(f)
+    idx = np.arange(width)
+    a[:, idx, idx] = np.where(idx < k, damped, f(1))
+    x = _rows_chol_solve(a[:, :k, :k], g[:, :k], width)
+    nrm = np.sqrt(np.maximum((x * x).sum(1, dtype=f), f(1e-20)))
+    scale = np.minimum(f(1), rad / np.maximum(nrm, f(1e-10)))
+    return (x * scale[:, None]).astype(f)
+
+
+@pytest.mark.parametrize("n_res,k,width", [(49, 28, 28), (25, 14, 28),
+                                           (30, 32, 32), (12, 29, 32)])
+def test_lane_rows_jtj_emulation_matches_twin(n_res, k, width):
+    """The lane-per-row JtJ of kernel B4 (full rows, summed one residual
+    row at a time, the normal matrix never leaving the lanes), emulated in
+    numpy float32 at both instance widths and with padded columns, against
+    `lm_delta_ref` (atol 2e-4, rtol 2e-3: B4's bounds on the card); zero
+    characters give exactly 0."""
+    rng = np.random.default_rng(1000 * k + n_res)
+    c = 64
+    j = rng.standard_normal((c, n_res, k)).astype(np.float32)
+    r = rng.standard_normal((c, n_res)).astype(np.float32)
+    lam = (10.0 ** rng.uniform(-3, 1, c)).astype(np.float32)
+    rad = rng.uniform(0.1, 4.0, c).astype(np.float32)
+    j[-3:] = 0.0
+    r[-3:] = 0.0
+    d = _lane_rows_lm_delta(j, r, lam, rad, width)
+    d_t = kernels.lm_delta_ref(*(torch.as_tensor(x) for x in (j, r, lam,
+                                                              rad)))
+    np.testing.assert_allclose(d, d_t.numpy(), atol=2e-4, rtol=2e-3)
+    assert np.all(d[-3:] == 0.0)
+
+
 def test_lm_minimize_modes_match_jax():
     """lm_minimize's exact (residual_fn) and make_residual_fn modes, with
     the B2 and B4 step routes, against the JAX lm_minimize on a small

@@ -10,11 +10,18 @@ import torch
 
 torch.set_num_threads(1)
 
+from morphablegraphs_tpu.models import graph as gj  # noqa: E402
+from morphablegraphs_tpu.models import skeleton as skj  # noqa: E402
 from morphablegraphs_tpu.ops import align as alj  # noqa: E402
+from morphablegraphs_tpu.serve import batch as batch_j  # noqa: E402
 from morphablegraphs_tpu.synthesis import constrained_walk as cwj  # noqa: E402
 from morphablegraphs_tpu.synthesis import walk as wj  # noqa: E402
+from morphablegraphs_tpu.utils import synthetic as synj  # noqa: E402
+from morphablegraphs_tpu_torch.models import graph as gt  # noqa: E402
+from morphablegraphs_tpu_torch.models import skeleton as skt  # noqa: E402
 from morphablegraphs_tpu_torch.ops import align as alt  # noqa: E402
 from morphablegraphs_tpu_torch.parallel import crowd as pct  # noqa: E402
+from morphablegraphs_tpu_torch.serve import batch as batch_t  # noqa: E402
 from morphablegraphs_tpu_torch.synthesis import constrained_walk as cwt  # noqa: E402
 from morphablegraphs_tpu_torch.synthesis import walk as wt  # noqa: E402
 
@@ -247,3 +254,98 @@ def test_crowds_refuse_more_than_one_device(toy):
     with pytest.raises(ValueError, match="locomotion family"):
         pct.constrained_crowd_sharded(["cpu", "cpu"], toy["skel_t"], st_t,
                                       paths, ids, 2, draws, step_scs=scs)
+
+
+# ---------------------------------------------------------------------------
+# Serving: the boundary-row switch, and the way through parallel/
+# ---------------------------------------------------------------------------
+
+def _traj_request(end_x, end_z):
+    return {
+        "startPose": {"position": [0, 0, 0], "orientation": [0, 0, 0]},
+        "elementaryActions": [{
+            "action": "walk",
+            "constraints": [{"joint": "Hips", "trajectoryConstraints": [
+                {"position": [0, None, 0]},
+                {"position": [end_x / 2, None, end_z / 2]},
+                {"position": [end_x, None, end_z]}]}],
+        }],
+    }
+
+
+def _generators(**kw):
+    """The JAX BatchedGenerator and the port's on the toy model, the port's
+    carrying the JAX stacked graph's leaves (its step statistics too)."""
+    graph_j = gj.build_graph_from_dict(synj.make_graph_dict())
+    graph_j.skeleton, _ = skj.load_bvh(synj.TEST_BVH)
+    graph_t = gt.build_graph_from_dict(synj.make_graph_dict())
+    graph_t.skeleton, _ = skt.load_bvh(synj.TEST_BVH)
+    bg_j = batch_j.BatchedGenerator(graph_j, **kw)
+    bg_t = batch_t.BatchedGenerator(graph_t, device="cpu", **kw)
+    bg_t.stacked = gt.from_jax_numpy(tp.to_numpy(bg_j.stacked))
+    return bg_j, bg_t
+
+
+def test_serving_boundary_rows_matches_jax(monkeypatch):
+    """BatchedGenerator(full_constraints=False) serves through the
+    boundary-row walk as the JAX package's does: n_samples is not rounded
+    up to the selection kernel's tile, and on the JAX batch's own draws
+    (PRNGKey(seed) split over the requests) every request's frames agree:
+    equal lengths, values to 1e-3 (the boundary-row walk's bound above)."""
+    kw = dict(n_steps=4, n_samples=24, max_step_frames=MAX_FRAMES,
+              full_constraints=False)
+    bg_j, bg_t = _generators(**kw)
+    assert bg_t.n_samples == 24 and not bg_t.full_constraints
+    reqs = [_traj_request(20, 100), _traj_request(-20, 100),
+            _traj_request(0, 120)]
+    outs_j = bg_j.generate_batch(reqs, seed=11)
+    st_j = bg_j.stacked
+    draws = tp.port_draws(tp.jax_walk_draws(
+        jax.random.PRNGKey(11), len(reqs), kw["n_steps"], kw["n_samples"],
+        st_j.gmm_weights.shape[-1], st_j.gmm_means.shape[-1], st_j.n_nodes))
+    seen = {}
+
+    def sampler(gen, g, n_chars, n_samples):
+        seen.update(n_chars=n_chars, n_samples=n_samples)
+        return draws
+
+    monkeypatch.setattr(batch_t.walk_mod, "torch_sampler", sampler)
+    outs_t = bg_t.generate_batch(reqs, seed=11)
+    assert seen == dict(n_chars=3, n_samples=24)
+    assert len(outs_t) == len(outs_j) == 3
+    for f_t, f_j in zip(outs_t, outs_j):
+        assert f_t.shape == np.asarray(f_j).shape and f_t.shape[0] > 30
+        np.testing.assert_allclose(f_t, np.asarray(f_j), atol=1e-3)
+
+
+def test_serving_goes_through_parallel(monkeypatch):
+    """`generate_batch` reaches the crowd walk through
+    `parallel.constrained_crowd_sharded` on the generator's one device, with
+    the selection kernels asked for exactly when the constraint sets carry
+    the locomotion family only (JAX's `use_pallas` on one device), and
+    returns what the crowd walk returns on the same draws."""
+    _, bg = _generators(n_steps=2, n_samples=16, max_step_frames=MAX_FRAMES,
+                        lm_iters=1)
+    assert bg.n_samples == 128 and bg.full_constraints
+    reqs = [_traj_request(20, 100), _traj_request(-20, 100)]
+    seen = {}
+    real = batch_t.parallel.constrained_crowd_sharded
+
+    def spy(devices, skel, g, paths, start_ids, n_steps, draws,
+            step_scs=None, cfg=None):
+        seen.update(devices=list(devices), cfg=cfg, n_steps=n_steps,
+                    scs=step_scs)
+        out = real(devices, skel, g, paths, start_ids, n_steps, draws,
+                   step_scs=step_scs, cfg=cfg)
+        seen["out"] = out
+        return out
+
+    monkeypatch.setattr(batch_t.parallel, "constrained_crowd_sharded", spy)
+    outs = bg.generate_batch(reqs, seed=3)
+    assert seen["devices"] == [torch.device("cpu")] and seen["n_steps"] == 2
+    assert seen["cfg"] == bg.walk_config() and seen["cfg"].pallas_selection
+    assert seen["scs"] is not None
+    segs, n_frames = (a.numpy() for a in seen["out"][:2])
+    for c, frames in enumerate(outs):
+        np.testing.assert_array_equal(
+            frames, wt.flatten_segments(segs[c], n_frames[c]))

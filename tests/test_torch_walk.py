@@ -134,6 +134,80 @@ def test_whole_crowd_walk_matches_jax(walk_setup):
     np.testing.assert_allclose(t_segs, segs, atol=1e-2)
 
 
+# WalkConfig settings that were module constants of the port: the JAX walk
+# takes each as an argument
+SETTINGS = {
+    "window0": dict(window=0),
+    "weights": dict(window=6, step_length_factor=0.7, end_threshold=35.0,
+                    pos_weight=2.0, dir_weight=0.5, traj_weight=0.6,
+                    error_scale=0.8, quality_scale=0.3),
+    "no_traj": dict(use_traj=False, lm_iters=1),
+}
+# (atol of the error after the LM, atol of the frames).  Without the
+# trajectory rows the toy model's normal matrix is close to singular: one LM
+# iteration moves the second step's error by 1e-2 between the packages and
+# its frames by 3.7e-3, as much as the JAX package's own frozen and exact
+# LMs differ there (14.312 against 14.311), so that case is held to 2e-2
+# and 5e-3; before the LM its errors agree to 2.5e-4.
+SETTINGS_ATOL = {"window0": (2e-3, 1e-3), "weights": (2e-3, 1e-3),
+                 "no_traj": (2e-2, 5e-3)}
+
+
+@pytest.mark.parametrize("name", list(SETTINGS))
+def test_walk_config_settings_match_jax(walk_setup, name):
+    """`WalkConfig` carries the walk's settings as JAX's
+    constrained_walk_full takes them: no seam smoothing (window=0), another
+    step length, end threshold, weights and LM scales, no trajectory
+    family; and `return_pre_lm_err` adds the selection error before the LM.
+    Two steps, each fed the JAX walk's state and draws: node ids and frame
+    counts exactly, the error before the LM to rtol 1e-4 (atol 2e-3, the
+    arccos near 1), the error after it and the frames to SETTINGS_ATOL
+    (2e-3 and 1e-3, the default-settings step test's)."""
+    s = walk_setup
+    kw = SETTINGS[name]
+    err_atol, frames_atol = SETTINGS_ATOL[name]
+    n_steps = 2
+    out = cwj.constrained_walk_full_crowd(
+        s["skel_j"], jax.random.PRNGKey(7), s["st_j"], s["paths_j"],
+        s["start"], n_chars=N_CHARS, n_steps=n_steps, pallas_selection=True,
+        root_only=True, lm_frozen=True, return_pre_lm_err=True,
+        **dict(WALK_KW, **kw))
+    segs, nf, ids, errs, pre = (np.asarray(a) for a in out)
+    assert np.all(ids >= 0)
+    skel_t, st_t, paths_t = s["skel_t"], s["st_t"], s["paths_t"]
+    cfg = cwt.WalkConfig(**dict(PORT_KW, return_pre_lm_err=True, **kw))
+    draws = tp.port_draws(s["draws"])
+    table = kernels.pack_path_table(paths_t, torch.as_tensor(
+        skel_t.offsets[0]))
+    scs = cwt.default_step_scs(skel_t, n_steps)
+    state = cwt.initial_state(st_t, torch.full((N_CHARS,), s["start"]))
+    for t in range(n_steps):
+        new, step = cwt.full_walk_step(
+            skel_t, st_t, paths_t, table, state, t,
+            cwt.step_constraints(scs, t, N_CHARS, "cpu"), draws(t), cfg,
+            root_only=True)
+        np.testing.assert_array_equal(step.node_id.numpy(), ids[:, t])
+        np.testing.assert_array_equal(step.n_frames.numpy(), nf[:, t])
+        np.testing.assert_allclose(step.pre_lm_error.numpy(), pre[:, t],
+                                   rtol=1e-4, atol=2e-3)
+        np.testing.assert_allclose(step.error.numpy(), errs[:, t], rtol=1e-4,
+                                   atol=err_atol)
+        np.testing.assert_allclose(step.frames.numpy(), segs[:, t],
+                                   atol=frames_atol)
+        # the next step starts from the JAX walk's carried frame
+        state = cwt.WalkState(
+            new.node_id, torch.as_tensor(segs[np.arange(N_CHARS), t,
+                                              nf[:, t] - 1]),
+            new.travelled, new.done)
+    whole = cwt.constrained_walk_full_crowd(
+        skel_t, st_t, paths_t, torch.full((N_CHARS,), s["start"]), n_steps,
+        draws=draws, cfg=cfg)
+    assert len(whole) == 5 and whole[4].shape == (N_CHARS, n_steps)
+    np.testing.assert_allclose(whole[4][:, 0].numpy(), pre[:, 0], rtol=1e-4,
+                               atol=2e-3)
+    assert not hasattr(cwt, "WINDOW") and not hasattr(cwt, "POS_WEIGHT")
+
+
 def test_contract_guard_refuses_user_slots(walk_setup):
     """A user keyframe slot beyond the locomotion family is refused before
     the walk runs (the selection kernel would ignore it)."""

@@ -122,6 +122,111 @@ def test_ee_walk_matches_jax(walk_setup, variant):
                                        jnp.asarray(travelled)))
 
 
+def test_general_selection_walk_matches_jax(walk_setup):
+    """A walk the selection kernels cannot rank: a Head keyframe with an
+    orientation in slot 2 and a Leg keyframe in slot 3, 24 candidates a
+    step.  With pallas_selection the crowd boundary refuses it; without,
+    the exact evaluator ranks the candidates as the JAX walk's vmapped
+    stacked_error does (pallas_selection=False, root_only=False, the exact
+    LM at one iteration).  Each step fed the JAX walk's state and draws:
+    frame counts exactly, the selection error before the LM to rtol 1e-4
+    plus atol 2e-3, the error after it and the frames to the ee step
+    bounds above (atol 1e-2, 1e-3)."""
+    s = walk_setup
+    skel_j, skel_t, st_t, paths_t = (s["skel_j"], s["skel_t"], s["st_t"],
+                                     s["paths_t"])
+    n_samples, n_steps = 24, 2
+    half = np.deg2rad(25.0) / 2
+    base = cj.set_keyframe_constraint(
+        cj.empty_step_constraints(skel_j, 0), 2, skel_j, JOINT, FRAME,
+        position=np.asarray(TARGET, np.float32),
+        quat_wxyz=np.asarray([np.cos(half), 0.0, np.sin(half), 0.0],
+                             np.float32), weight=WEIGHT)
+    base = cj.set_keyframe_constraint(
+        base, 3, skel_j, "Leg", 12.0,
+        position=np.asarray([3.0, 40.0, 10.0], np.float32))
+    scs_j = jax.tree.map(lambda x: np.broadcast_to(
+        np.asarray(x), (n_steps,) + np.shape(x)).copy(), base)
+    scs_t = ct.from_jax_numpy(scs_j, host=True)
+    kw = dict(max_step_frames=MAX_FRAMES, n_samples=n_samples, lm_iters=1,
+              lm_threshold=5.0)
+    key = jax.random.PRNGKey(29)
+    st_j = s["st_j"]
+    draws = tp.port_draws(tp.jax_walk_draws(
+        key, N_CHARS, n_steps, n_samples, st_j.gmm_weights.shape[-1],
+        st_j.gmm_means.shape[-1], st_j.n_nodes))
+    start = torch.full((N_CHARS,), s["start"])
+    with pytest.raises(ValueError, match="locomotion family"):
+        cwt.constrained_walk_full_crowd(
+            skel_t, st_t, paths_t, start, n_steps, draws=draws,
+            step_scs=scs_t, cfg=cwt.WalkConfig(**dict(kw, n_samples=128)))
+    with pytest.raises(ValueError, match="pallas_ee requires"):
+        cwt.constrained_walk_full_crowd(
+            skel_t, st_t, paths_t, start, n_steps, draws=draws,
+            step_scs=scs_t, cfg=cwt.WalkConfig(
+                **kw, pallas_selection=False, pallas_ee=JOINT))
+
+    out = cwj.constrained_walk_full_crowd(
+        skel_j, key, st_j, s["paths_j"], s["start"], n_chars=N_CHARS,
+        n_steps=n_steps, step_scs=scs_j, pallas_selection=False,
+        root_only=False, lm_frozen=False, return_pre_lm_err=True, **kw)
+    segs, nf, ids, errs, pre = (np.asarray(a) for a in out)
+    assert np.all(ids >= 0)
+    cfg = cwt.WalkConfig(**kw, pallas_selection=False,
+                         return_pre_lm_err=True)
+    whole = cwt.constrained_walk_full_crowd(
+        skel_t, st_t, paths_t, start, n_steps, draws=draws, step_scs=scs_t,
+        cfg=cfg)
+    np.testing.assert_array_equal(whole[2].numpy(), ids)
+    np.testing.assert_array_equal(whole[1].numpy(), nf)
+    np.testing.assert_allclose(whole[4][:, 0].numpy(), pre[:, 0], rtol=1e-4,
+                               atol=2e-3)
+
+    table = kernels.pack_path_table(paths_t, torch.as_tensor(
+        skel_t.offsets[0]))
+    closest = jax.jit(jax.vmap(lambda p, x, a: spj.closest_point(p, x, a)[1]))
+    travelled = np.zeros(N_CHARS, np.float32)
+    prev_last = np.zeros((N_CHARS, st_t.n_dim), np.float32)
+    for t in range(n_steps):
+        state = cwt.WalkState(
+            node_id=torch.as_tensor(ids[:, t].copy()).long(),
+            prev_last=torch.as_tensor(prev_last.copy()),
+            travelled=torch.as_tensor(travelled.copy()),
+            done=torch.zeros(N_CHARS, dtype=torch.bool))
+        _, step = cwt.full_walk_step(
+            skel_t, st_t, paths_t, table, state, t,
+            cwt.step_constraints(scs_t, t, N_CHARS, "cpu"), draws(t), cfg,
+            root_only=False)
+        np.testing.assert_array_equal(step.n_frames.numpy(), nf[:, t])
+        np.testing.assert_allclose(step.pre_lm_error.numpy(), pre[:, t],
+                                   rtol=1e-4, atol=2e-3)
+        np.testing.assert_allclose(step.error.numpy(), errs[:, t],
+                                   rtol=1e-4, atol=1e-2)
+        np.testing.assert_allclose(step.frames.numpy(), segs[:, t],
+                                   atol=1e-3)
+        prev_last = segs[np.arange(N_CHARS), t, nf[:, t] - 1]
+        travelled = np.asarray(closest(s["paths_j"],
+                                       jnp.asarray(prev_last[:, :3]),
+                                       jnp.asarray(travelled)))
+
+
+def test_general_selection_chunks_agree(walk_setup, monkeypatch):
+    """Ranking in chunks of candidates (a crowd too large for one pass of
+    the exact evaluator) gives the errors of one pass."""
+    s = walk_setup
+    skel_t, st_t = s["skel_t"], s["st_t"]
+    cfg = cwt.WalkConfig(max_step_frames=MAX_FRAMES, n_samples=N_SAMPLES,
+                         lm_iters=0, pallas_selection=False)
+    args = (skel_t, st_t, s["paths_t"], torch.full((N_CHARS,), s["start"]), 1)
+    kw = dict(draws=tp.port_draws(s["draws"]), step_scs=s["scs_t"], cfg=cfg)
+    one = cwt.constrained_walk_full_crowd(*args, **kw)
+    monkeypatch.setattr(cwt, "MAX_EXACT_ROWS", 5 * N_CHARS)
+    chunked = cwt.constrained_walk_full_crowd(*args, **kw)
+    for a, b in zip(one, chunked):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+
+
 def test_walk_guards_raise_as_jax(walk_setup):
     """The crowd boundary refuses what the kernels and the frozen model
     would get wrong, with JAX's messages (test_constrained_walk_full.py
