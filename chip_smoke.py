@@ -44,22 +44,26 @@ Phases, one line each (or a few):
  10. small walks on the GPU path against the same walks on the CPU path
      (the kernels' twins) with the same random draws: root-only without
      and with the frozen LM, the ee walk, the exact-LM walk, the ee walk
-     with the fused LM step, the random walks (concatenating and segment
-     form) and the boundary-row constrained walk;
+     with the fused LM step, the general selection walk, the families walk
+     (every constraint family and the half step), the random walks
+     (concatenating and segment form) and the boundary-row constrained walk;
  11. the benchmark crowds, 1024 characters x 8 steps, 128 candidates, 160
      frames per step, 3 LM iterations, threshold 5.0, as bench.py runs
      them: the root-only headline (frozen LM), `ee` (a RightHand keyframe,
      frozen-ee LM), `ee` with the fused LM step (B4 instead of B2),
-     `lm_exact` and `ee_exact` (the exact LM): frames/s and the mean
-     constraint error, with the kernels each run launched; then the random
+     `lm_exact` and `ee_exact` (the exact LM), and `families` (look-at,
+     joint rotation, relative transform, the transition pose, two CA slots
+     and a trajectory set on the hands, with the half step, through the
+     general selection path and the exact LM): frames/s, the mean
+     constraint error, and the kernels each run launched; then the random
      crowds at BASELINE config 5's shape (1024 characters x 8 steps of
      random_walk_segments, 160 frames a step), in the concatenating form,
      with the random walk's largest root seam jump beside the numpy
      reference concatenation's (tests/reference_oracle.py), and on the
      canonical timeline (use_time=False), the path that gives kernel B6 a
      basis;
- 12. one more root-only, ee, lm_exact and config-5 crowd run under
-     torch.profiler: device busy and idle share, time per walk stage, the
+ 12. one more root-only, ee, lm_exact, families and config-5 crowd run
+     under torch.profiler: device busy and idle share, time per walk stage, the
      top kernels and each of the port's kernels (launched through ctypes,
      so no walk stage's device time counts them).
 The checks of phases 3-8 run first, but their lines are printed after phase
@@ -74,6 +78,7 @@ nonzero; without a CUDA device the script fails before it prints any
 result.
 """
 
+import bisect
 import json
 import pathlib
 import re
@@ -175,13 +180,14 @@ def _device_ms(fn, reps: int, ours: bool = True) -> float:
     the sum of every kernel fn launches.  Unlike `_time_ms` it holds no
     host time.  A trace may miss the first launches after it starts (seen
     in the 8th trace of a process: 9 of 20 recorded), so the mean is taken
-    over the launches it holds; if it holds none, a second trace is tried
-    before failing."""
+    over the launches it holds; if it holds none (seen twice in a row in
+    a process's first traces), up to three more traces are tried before
+    failing."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     cuda = torch.autograd.DeviceType.CUDA
     fn()
-    for _ in range(2):
+    for _ in range(4):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -878,7 +884,7 @@ def phase_serve(graph, device):
     return counts
 
 
-# the walks of phases 8-10: WalkConfig flags, and whether the constraint
+# the walks of phases 10-11: WalkConfig flags, and whether the constraint
 # sets carry bench.py's RightHand keyframe (the ee config)
 WALKS = {
     "root": (dict(lm_frozen=True), False),  # bench.py's headline
@@ -888,6 +894,10 @@ WALKS = {
                       frozen_ee=EE_JOINT, lm_fused_step=True), True),
     "lm_exact": (dict(lm_frozen=False), False),
     "ee_exact": (dict(pallas_ee=EE_JOINT, lm_frozen=False), True),
+    # every constraint family (`_families_scs`) and the half step: no
+    # selection kernel scores them, so the exact evaluator ranks
+    "families": (dict(pallas_selection=False, lm_frozen=False, use_ca=True,
+                      use_ts=True, use_half=True), False),
 }
 CROWDS = tuple(WALKS)  # the walks of phase 11
 # phase 10 only: the general selection path (the exact evaluator ranks the
@@ -911,6 +921,10 @@ WALK_KERNELS = {
     "ee_exact": (("score_locomotion_candidates_ee", "chol_solve",
                   "gmm_scores", "emit_frames"),
                  ("lm_delta", "crowd_back_project")),
+    "families": (("chol_solve", "gmm_scores", "emit_frames"),
+                 ("score_locomotion_candidates",
+                  "score_locomotion_candidates_ee", "lm_delta",
+                  "crowd_back_project")),
 }
 
 
@@ -921,12 +935,56 @@ def _walk_cfg(name: str, lm_iters: int = 3):
                          **WALKS[name][0])
 
 
-def _step_scs(skel, name: str, n_steps: int):
+# the families walk's user slots on the reference-scale skeleton, each one the
+# reference's action builder emits (look-at, pose, CA) or its input format
+# carries (joint rotation, relative transform, trajectory set):
+FAM_LOOK_AT = (0.0, 170.0, 400.0)  # Head gazes at a point ahead, frame 129
+FAM_JR = ("Spine1", (0.9914449, 0.1305262, 0.0, 0.0), 65.0)  # 15 deg about x
+# LeftHand 36 cm along RightHand's x axis (the rest pose's hand spacing)
+FAM_RT = ("LeftHand", "RightHand", (36.0, 0.0, 0.0), 65.0)
+FAM_CA = (("RightHand", (-20.0, 70.0, 60.0)), ("LeftHand", (20.0, 70.0, 60.0)))
+# the hands follow straight 150 cm splines at hand height beside the root
+FAM_TS = (("RightHand", ((-18.0, 67.0, 0.0), (-18.0, 67.0, 150.0))),
+          ("LeftHand", ((18.0, 67.0, 0.0), (18.0, 67.0, 150.0))))
+
+
+def _families_scs(skel, stacked, n_steps: int):
+    """The families walk's per-step sets: the FAM_* slots on every step,
+    and at step 0 the transition pose, every node at the FK of the start
+    node's mean first frame (a clamped spline's first coefficient row)."""
+    from morphablegraphs_tpu_torch.constraints import compiled
+    from morphablegraphs_tpu_torch.ops import spline_path
+    from morphablegraphs_tpu_torch.synthesis import constrained_walk as cw
+    sc = compiled.empty_step_constraints(skel, 0)
+    sc = compiled.set_look_at_constraint(sc, skel, "Head", FAM_LOOK_AT, 129.0)
+    sc = compiled.set_joint_rotation_constraint(sc, skel, FAM_JR[0], FAM_JR[1],
+                                                FAM_JR[2])
+    sc = compiled.set_relative_transform_constraint(sc, skel, *FAM_RT)
+    for slot, (joint, pos) in enumerate(FAM_CA):
+        sc = compiled.set_ca_constraint(sc, skel, joint, pos, slot=slot)
+    sc = compiled.set_trajectory_set_constraint(
+        sc, skel, [j for j, _ in FAM_TS],
+        [spline_path.build(np.asarray(pts, np.float32), granularity=256)
+         for _, pts in FAM_TS])
+    start = stacked.node_id(("walk", "beginLeftStance"))
+    first = stacked.mean_s[start].reshape(stacked.n_basis_max,
+                                          stacked.n_dim)[0]
+    sc = compiled.set_pose_constraint(sc, skel, first.cpu().numpy())
+    scs = cw.stack_steps(sc, n_steps)
+    pose = np.zeros(n_steps, np.float32)
+    pose[0] = 1.0
+    return scs.replace(pose_active=pose)
+
+
+def _step_scs(skel, name: str, n_steps: int, stacked=None):
     """bench.py's per-step constraint sets: empty, or with ee a RightHand
     keyframe at EE_TARGET on canonical frame 129 in user slot 2; for the
-    general walk a RightHand orientation keyframe there."""
+    general walk a RightHand orientation keyframe there; for the families
+    walk `_families_scs`."""
     from morphablegraphs_tpu_torch.constraints import compiled
     from morphablegraphs_tpu_torch.synthesis import constrained_walk as cw
+    if name == "families":
+        return _families_scs(skel, stacked, n_steps)
     if name == "general":  # an orientation keyframe: no kernel ranks it
         base = compiled.set_keyframe_constraint(
             compiled.empty_step_constraints(skel, 0), 2, skel, EE_JOINT,
@@ -991,7 +1049,10 @@ def phase_reference(stacked_gpu, skel):
     candidates moves the step-0 error by up to 18% after 3 iterations and
     by 0.26% after one.  So the ee walks are held to the same bounds with
     one LM iteration, step by step, each CPU step starting from the GPU
-    walk's state (teacher forcing); the 3-iteration ee walk is printed."""
+    walk's state (teacher forcing); the 3-iteration ee walk is printed.
+    The families walk (every constraint family and the half step, general
+    selection, the exact LM at one iteration) is held over the whole walk,
+    without teacher forcing."""
     import torch
     from morphablegraphs_tpu_torch.ops import spline_path
     from morphablegraphs_tpu_torch.synthesis import constrained_walk as cw
@@ -1006,9 +1067,9 @@ def phase_reference(stacked_gpu, skel):
     for name, lm_iters, held in (("root", 0, True), ("root", 3, True),
                                  ("lm_exact", 3, True), ("ee", 1, True),
                                  ("ee_fused", 1, True), ("ee", 3, False),
-                                 ("general", 1, True)):
+                                 ("general", 1, True), ("families", 1, True)):
         cfg = _walk_cfg(name, lm_iters)
-        scs = _step_scs(skel, name, n_steps)
+        scs = _step_scs(skel, name, n_steps, stacked_gpu)
         forced = WALKS[name][1] and held
         runs = {}
         for dev in ("cuda", "cpu"):
@@ -1075,7 +1136,7 @@ def phase_crowd(name, stacked, skel, device, card: str, reps: int = 3,
     start = torch.full((n_chars,), stacked.node_id(("walk", "beginLeftStance")),
                        device=device)
     cfg = _walk_cfg(name)
-    scs = {t: _step_scs(skel, name, t) for t in (1, n_steps)}
+    scs = {t: _step_scs(skel, name, t, stacked) for t in (1, n_steps)}
 
     def run(seed, steps=n_steps):
         gen = torch.Generator(device=device).manual_seed(seed)
@@ -1104,7 +1165,8 @@ def phase_crowd(name, stacked, skel, device, card: str, reps: int = 3,
     print(f"crowd {name}: {n_chars} chars x {n_steps} steps on {card}, "
           f"{WALKS[name][0]}: median {fps:.1f} frames/s over {reps} runs "
           f"(seconds {times}, frames/s {rates}), mean_err per run {errors}, "
-          f"finite={finite}, launches {counts}", flush=True)
+          f"finite={finite}, launches per run "
+          f"{ {k: v / reps for k, v in counts.items() if v} }", flush=True)
     must, must_not = WALK_KERNELS[name]
     if not finite or min(rates) <= 0:
         _fail(f"crowd {name}: output is not finite or empty")
@@ -1254,6 +1316,43 @@ def phase_random_crowd(name, stacked, device, card: str, reps: int = 3):
     return float(np.median(times)), fps, launches, run
 
 
+def _trace_summary(prof, device_type):
+    """(kernels [(name, device ms)], stages {walk.* name: [host ms, device
+    busy ms, device span ms]}) of a torch.profiler trace, read from its raw
+    events: building `prof.events()`' trees of a families run (~1M events)
+    takes minutes.  The walk.* ranges appear twice, on the host timeline
+    and as a span on the device's; kernels are the other device events.  A
+    kernel's busy time counts toward the range whose host interval holds
+    the start of the torch op that launched it (the op its linked
+    correlation id names) on any thread: unlike
+    FunctionEvent.device_time_total, which reads one thread's tree, it
+    counts the autograd engine's backward ops (the closed LM's jacrev) in
+    walk.lm.  The port's kernels, launched through ctypes outside any torch
+    op, count toward no range."""
+    op_start, ranges, kernels, stages = {}, [], [], {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        on_device = e.device_type() == device_type
+        if name.startswith("walk."):
+            stage = stages.setdefault(name, [0.0, 0.0, 0.0])
+            stage[2 if on_device else 0] += e.duration_ns() / 1e6
+            if not on_device:
+                ranges.append((e.start_ns(), e.end_ns(), name))
+        elif on_device:
+            kernels.append((name, e.duration_ns() / 1e6,
+                            e.linked_correlation_id()))
+        elif e.linked_correlation_id() == 0:
+            op_start[e.correlation_id()] = e.start_ns()
+    ranges.sort()
+    starts = [r[0] for r in ranges]
+    for _, ms, link in kernels:
+        t = op_start.get(link)
+        i = -1 if t is None else bisect.bisect_right(starts, t) - 1
+        if i >= 0 and t < ranges[i][1]:
+            stages[ranges[i][2]][1] += ms
+    return [(n, ms) for n, ms, _ in kernels], stages
+
+
 def phase_profile(name, run, crowd_seconds: float):
     """One more crowd run under torch.profiler: device busy time from the
     CUDA kernel events, CPU / device time per walk stage (the walk.*
@@ -1267,34 +1366,16 @@ def phase_profile(name, run, crowd_seconds: float):
         run(3)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    cuda = torch.autograd.DeviceType.CUDA
-    events = prof.events()
-    # the walk.* ranges appear twice: on the host timeline and, as a span,
-    # on the device timeline; kernels are the other device events
-    kernel_events = [e for e in events if e.device_type == cuda
-                     and not e.name.startswith("walk.")]
-    busy_ms = sum(e.time_range.elapsed_us() for e in kernel_events) / 1e3
-    stages = {}
-    for e in events:
-        if not e.name.startswith("walk."):
-            continue
-        host, busy, span = stages.get(e.name, (0.0, 0.0, 0.0))
-        if e.device_type == cuda:
-            span += e.time_range.elapsed_us() / 1e3
-        else:
-            host += e.time_range.elapsed_us() / 1e3
-            busy += e.device_time_total / 1e3
-        stages[e.name] = (host, busy, span)
+    kernel_events, stages = _trace_summary(
+        prof, torch.autograd.DeviceType.CUDA)
+    busy_ms = sum(ms for _, ms in kernel_events)
     by_kernel, ours = {}, {}
-    for e in kernel_events:
-        by_kernel[e.name] = by_kernel.get(e.name, 0.0) \
-            + e.time_range.elapsed_us() / 1e3
-        # the port's kernels: launched through ctypes, outside any torch
-        # op, so no walk.* range's device busy time counts them
-        port = _port_kernel(e.name)
+    for kname, kms in kernel_events:
+        by_kernel[kname] = by_kernel.get(kname, 0.0) + kms
+        port = _port_kernel(kname)
         if port:
             ms, count = ours.get(port, (0.0, 0))
-            ours[port] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
+            ours[port] = (ms + kms, count + 1)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]
     print(f"profile {name}: one crowd run, {len(kernel_events)} kernel "
           f"launches, "
@@ -1392,7 +1473,7 @@ def main():
     randoms = {name: phase_random_crowd(name, stacked, device, smi)
                for name in ("segments", "concat", "canonical")}
     _flush_kernel_lines()
-    for name in ("root", "ee", "lm_exact"):
+    for name in ("root", "ee", "lm_exact", "families"):
         phase_profile(name, crowds[name][4], crowds[name][0])
     phase_profile("random segments (config 5)", randoms["segments"][3],
                   randoms["segments"][0])

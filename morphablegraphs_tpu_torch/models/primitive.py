@@ -117,13 +117,21 @@ def load_primitive_json(data: Dict[str, Any], name: str = "",
         n_spatial=eigen_s.shape[1], n_time=eigen_t_d.shape[1])
 
 
+def back_project_spatial(prim: MotionPrimitive,
+                         alpha: torch.Tensor) -> torch.Tensor:
+    """Spatial latents alpha [..., k_s] -> B-spline coefficients
+    [..., n_basis, n_dim] (E @ alpha + mu, the translation scale baked in
+    at load)."""
+    coeffs = torch.matmul(alpha, prim.eigen_s.T) + prim.mean_s
+    return coeffs.reshape(alpha.shape[:-1] + (prim.n_basis, prim.n_dim))
+
+
 def back_project_unwarped(prim: MotionPrimitive,
                           alpha: torch.Tensor) -> torch.Tensor:
     """Spatial latents alpha [..., k_s] -> frames [..., F, n_dim] on the
     canonical timeline linspace(0, F, F) (no time warping), the sampling
     the step-length statistics use."""
-    coeffs = torch.matmul(alpha, prim.eigen_s.T) + prim.mean_s
-    coeffs = coeffs.reshape(alpha.shape[:-1] + (prim.n_basis, prim.n_dim))
+    coeffs = back_project_spatial(prim, alpha)
     f = prim.n_canonical_frames
     i = torch.arange(f, dtype=torch.float32, device=alpha.device)
     t_fn = torch.clamp(i * (float(f) / max(f - 1, 1)), max=float(f - 1))

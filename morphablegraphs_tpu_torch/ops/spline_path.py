@@ -1,8 +1,11 @@
 """Arc-length parameterized Catmull-Rom trajectory splines (port of
 morphablegraphs_tpu.ops.spline_path).
 
-A PathSpline may carry a leading [C] axis (one path per character); every
-query takes matching leading axes on its arguments."""
+A PathSpline may carry leading axes: [C] for one path per character, or
+[C, J] for a trajectory-set constraint's stack of one spline per joint.
+Every query takes matching leading axes on its arguments.  Splines built
+with the same max_points and granularity have leaves of the same shapes and
+stack (`stack_paths`, `stack_host`)."""
 
 from __future__ import annotations
 
@@ -45,7 +48,8 @@ class PathSpline:
 
 
 def from_jax_numpy(sp, device=None) -> PathSpline:
-    """A JAX PathSpline with numpy leaves -> the port's PathSpline."""
+    """A spline with numpy leaves (the JAX package's, or a host-side one of
+    `stack_host`) -> the port's PathSpline of tensors."""
     def t(a, dtype=None):
         return torch.as_tensor(np.array(a), dtype=dtype, device=device)
     return PathSpline(points=t(sp.points, torch.float32),
@@ -56,10 +60,34 @@ def from_jax_numpy(sp, device=None) -> PathSpline:
                       unconstrained=t(sp.unconstrained, torch.bool))
 
 
+def map_leaves(sp: PathSpline, fn) -> PathSpline:
+    """The spline with fn applied to every leaf."""
+    return PathSpline(**{f.name: fn(getattr(sp, f.name))
+                         for f in dataclasses.fields(PathSpline)})
+
+
+def _check_stackable(paths):
+    shapes = {tuple(np.shape(getattr(p, f.name))
+                    for f in dataclasses.fields(PathSpline)) for p in paths}
+    if len(shapes) > 1:
+        raise ValueError("splines stack only when built with the same "
+                         "max_points and granularity")
+
+
 def stack_paths(paths) -> PathSpline:
     """Stack per-character PathSplines along a new leading axis."""
+    _check_stackable(paths)
     return PathSpline(**{f.name: torch.stack([getattr(p, f.name)
                                               for p in paths])
+                         for f in dataclasses.fields(PathSpline)})
+
+
+def stack_host(paths) -> PathSpline:
+    """Stack PathSplines along a new leading axis as numpy leaves (the
+    host-side form of a constraint set's spline stack)."""
+    _check_stackable(paths)
+    return PathSpline(**{f.name: np.stack([np.asarray(getattr(p, f.name))
+                                           for p in paths])
                          for f in dataclasses.fields(PathSpline)})
 
 
@@ -158,6 +186,11 @@ def u_at_arc_length(sp: PathSpline, arc: torch.Tensor) -> torch.Tensor:
 
 def point_at_u(sp: PathSpline, u: torch.Tensor) -> torch.Tensor:
     return _eval_u(sp.points, sp.n_points, u)
+
+
+def point_at_arc_length(sp: PathSpline, arc: torch.Tensor) -> torch.Tensor:
+    """Points [..., Q, 3] at Q arc lengths per spline, arc [..., Q]."""
+    return point_at_u(sp, u_at_arc_length(sp, arc))
 
 
 def point_and_dir_at_arc_length(sp: PathSpline, arc: torch.Tensor):

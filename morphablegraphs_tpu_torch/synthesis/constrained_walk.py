@@ -2,17 +2,22 @@
 constrained_walk): `constrained_walk_full` with the fused selection kernels
 (pallas_selection=True, and pallas_ee for one end-effector keyframe) or the
 general selection path (pallas_selection=False: every candidate through the
-exact evaluator, any user slot the residuals evaluate), and the lightweight
-boundary-row `constrained_walk`.
+exact evaluator, any constraint family), and the lightweight boundary-row
+`constrained_walk`.  WalkConfig's family flags are the JAX walk's: use_traj
+(the path's trajectory), use_ca (collision avoidance), use_ts (trajectory
+sets) and use_half (the half-step keyframe in slot 1); a user slot of a
+family whose flag is off is refused at the crowd boundary, never scored 0.
 
 The crowd is an explicit leading [C] axis and the JAX scan a Python loop
 over `full_walk_step`.  Per step and character:
-  1. the locomotion goal (goal keyframe + 2D direction) and the trajectory
-     constraint from the travelled arc are filled from path queries;
+  1. the locomotion goal (goal keyframe + 2D direction, with use_half the
+     half-step keyframe) and the trajectory constraint from the travelled
+     arc are filled from path queries;
   2. n_samples GMM candidates are ranked by kernel B1 (with an end-effector
      keyframe, B3), and the winner is re-scored by the exact evaluator
      (root-only, or the dense FK pass when a slot is on another joint);
-     without pallas_selection the exact evaluator ranks them itself;
+     without pallas_selection the exact evaluator ranks them itself, with
+     every family the step's sets carry;
   3. where that error is >= lm_threshold, lm_iters LM iterations refine it,
      kept only if the exact error improves: the exact LM by default, or the
      frozen-correspondence LM (closed form or linearize form).  The normal
@@ -90,7 +95,12 @@ class WalkConfig:
     end_threshold: arc left on the path from which the walk heads for its
     end; pos_weight, dir_weight, traj_weight: weights of the goal keyframe,
     the 2D direction and the trajectory; use_traj: evaluate the trajectory
-    family; root_node: skeleton index of the joint that follows the path;
+    family; use_ca, use_ts: evaluate the collision-avoidance and the
+    trajectory-set slots (off by default, as in the JAX walk; a set that
+    carries such a slot needs its flag); use_half: the half-step keyframe
+    (half a step along the path at the middle keyframe) in slot 1, which
+    the selection kernels do not score, so it needs pallas_selection=False;
+    root_node: skeleton index of the joint that follows the path;
     return_pre_lm_err: also return each step's best-of-N selection error
     before the LM."""
 
@@ -113,6 +123,9 @@ class WalkConfig:
     dir_weight: float = 0.8
     traj_weight: float = 1.0
     use_traj: bool = True
+    use_ca: bool = False
+    use_ts: bool = False
+    use_half: bool = False
     root_node: int = 0
     return_pre_lm_err: bool = False
 
@@ -123,10 +136,15 @@ MAX_EXACT_ROWS = 32768
 
 
 def stack_steps(base: compiled.StepConstraints, n_steps: int):
-    """n_steps copies of a host-side constraint set (numpy leaves)."""
+    """n_steps copies of a host-side constraint set (numpy leaves; the
+    trajectory-set stack's leaves too)."""
+    def steps(a):
+        a = np.asarray(a)
+        return np.broadcast_to(a, (n_steps,) + a.shape)
+
     return dataclasses.replace(base, **{
-        f.name: np.broadcast_to(np.asarray(getattr(base, f.name)),
-                                (n_steps,) + np.shape(getattr(base, f.name)))
+        f.name: (spline_path.map_leaves(getattr(base, f.name), steps)
+                 if f.name == "ts_trajs" else steps(getattr(base, f.name)))
         for f in dataclasses.fields(base) if f.name != "traj"})
 
 
@@ -160,16 +178,29 @@ def check_pallas_selection_contract(skeleton: Skeleton, step_scs,
 
 def check_walk_contract(skeleton: Skeleton, step_scs, cfg: WalkConfig,
                         root_only: bool):
-    """The host-side guards of constrained_walk_full_crowd: with
+    """The host-side guards of constrained_walk_full_crowd: no active slot
+    of a family the walk's flags leave unscored (collision avoidance
+    without use_ca, a trajectory set without use_ts); with
     cfg.pallas_selection the selection kernels' contract (n_samples in
-    tiles of 128, no user slot they would ignore), and the frozen LM's
-    model (root-only slots, or root slots plus one position-only keyframe
-    on frozen_ee in slot 2; the closed form would score a slot on any
-    other joint against the root)."""
+    tiles of 128, no half step and no user slot they would ignore), and
+    the frozen LM's model (root-only slots, or root slots plus one
+    position-only keyframe on frozen_ee in slot 2; the closed form would
+    score a slot on any other joint against the root)."""
+    for flag, name, active in (("use_ca", "collision-avoidance",
+                                step_scs.ca_active),
+                               ("use_ts", "trajectory-set",
+                                step_scs.ts_active)):
+        if not getattr(cfg, flag) and np.any(np.asarray(active) > 0):
+            raise ValueError(f"step_scs carries {name} slots, which the "
+                             f"walk scores only with {flag}=True")
     if cfg.pallas_selection:
         if cfg.n_samples % kernels.N_BLK != 0:
             raise ValueError(
                 f"pallas_selection needs n_samples % {kernels.N_BLK} == 0")
+        if cfg.use_half:
+            raise ValueError(
+                "pallas_selection scores the locomotion goal only; the "
+                "half-step keyframe slot would be ignored during ranking")
         check_pallas_selection_contract(skeleton, step_scs, cfg.pallas_ee)
     elif cfg.pallas_ee is not None:
         raise ValueError("pallas_ee requires pallas_selection")
@@ -187,18 +218,25 @@ def check_walk_contract(skeleton: Skeleton, step_scs, cfg: WalkConfig,
 
 
 def step_constraints(step_scs, step_idx: int, n_chars: int,
-                      device) -> compiled.StepConstraints:
-    """Step step_idx of the host-side sets, broadcast to [C, ...] tensors."""
-    kw = {}
-    for f in dataclasses.fields(compiled.StepConstraints):
-        if f.name == "traj":
-            kw[f.name] = None
-            continue
-        a = np.asarray(getattr(step_scs, f.name))[step_idx]
-        t = torch.as_tensor(np.array(a), device=device)
-        t = t.long() if not t.is_floating_point() else t.float()
-        kw[f.name] = t.expand((n_chars,) + tuple(t.shape)).clone()
-    return compiled.StepConstraints(**kw)
+                     device) -> compiled.StepConstraints:
+    """Step step_idx of the host-side sets, broadcast to [C, ...] tensors
+    (the trajectory-set splines to [C, J, ...] views of one copy)."""
+    sc = compiled.from_jax_numpy(dataclasses.replace(step_scs, **{
+        f.name: (spline_path.map_leaves(step_scs.ts_trajs,
+                                        lambda a: np.asarray(a)[step_idx])
+                 if f.name == "ts_trajs"
+                 else np.asarray(getattr(step_scs, f.name))[step_idx])
+        for f in dataclasses.fields(step_scs) if f.name != "traj"}),
+        device)
+
+    def crowd(t):
+        return t.expand((n_chars,) + t.shape)
+
+    return dataclasses.replace(sc, **{
+        f.name: (spline_path.map_leaves(sc.ts_trajs, crowd)
+                 if f.name == "ts_trajs"
+                 else crowd(getattr(sc, f.name)).clone())
+        for f in dataclasses.fields(sc) if f.name != "traj"})
 
 
 def _gmm_nll(g: StackedGraph, node_id: torch.Tensor,
@@ -210,13 +248,19 @@ def _gmm_nll(g: StackedGraph, node_id: torch.Tensor,
 
 
 def _aligned_coeffs(g: StackedGraph, node_id, sc, s, root_only: bool = True):
-    """Aligned B-spline coefficients of latents s [C, L]: [C, n_basis, 7],
-    the root channels the root-only residuals read, or with
-    root_only=False every channel [C, n_basis, n_dim]."""
+    """Aligned B-spline coefficients of latents s [C, L]: with root_only
+    the root form [C, n_basis, ROOT_FORM] the root-only residuals read
+    (channels 0:7 and the joint-rotation slot's quaternion block,
+    `compiled.root_form_channels`), else every channel [C, n_basis,
+    n_dim]."""
     c = s.shape[0]
-    n_ch = 7 if root_only else g.n_dim
-    e = g.eigen_s[node_id].reshape(c, g.n_basis_max, g.n_dim, -1)[:, :, :n_ch]
-    mu = g.mean_s[node_id].reshape(c, g.n_basis_max, g.n_dim)[:, :, :n_ch]
+    e = g.eigen_s[node_id].reshape(c, g.n_basis_max, g.n_dim, -1)
+    mu = g.mean_s[node_id].reshape(c, g.n_basis_max, g.n_dim)
+    if root_only:
+        ch = compiled.root_form_channels(sc.jr_joint)[:, None, :].expand(
+            c, g.n_basis_max, compiled.ROOT_FORM)
+        e = torch.gather(e, 2, ch[..., None].expand(ch.shape + e.shape[-1:]))
+        mu = torch.gather(mu, 2, ch)
     coeffs = torch.einsum("cbhk,ck->cbh", e, s[:, : g.k_s_max]) + mu
     q_prev, d_prev = align.node_aligning_2d_transform(sc.prev_last,
                                                       coeffs[:, 0])
@@ -226,29 +270,50 @@ def _aligned_coeffs(g: StackedGraph, node_id, sc, s, root_only: bool = True):
     return align.transform_frames(coeffs, q_y, delta)
 
 
-def exact_error(skeleton: Skeleton, g: StackedGraph, node_id, sc, s,
-                root_only: bool = True, use_traj: bool = True):
-    """Exact constraint error [C] of latents s [C, L] (the JAX package's
-    stacked_error with use_ca=False: root-only, or the dense FK pass)."""
-    return compiled.error_from_residuals(compiled.residuals_from_coeffs(
+def _families(cfg: WalkConfig) -> dict:
+    """The family flags of a WalkConfig, as residuals_from_coeffs takes
+    them."""
+    return dict(use_traj=cfg.use_traj, use_ca=cfg.use_ca, use_ts=cfg.use_ts)
+
+
+def _residuals(skeleton: Skeleton, g: StackedGraph, node_id, sc, s,
+               root_only: bool, **families):
+    """The exact constraint residuals [C, R] of latents s [C, L] (the JAX
+    walk's stacked_residuals)."""
+    return compiled.residuals_from_coeffs(
         skeleton, g.knots_s[node_id], sc,
-        _aligned_coeffs(g, node_id, sc, s, root_only), root_only, use_traj))
+        _aligned_coeffs(g, node_id, sc, s, root_only), root_only=root_only,
+        **families)
+
+
+def exact_error(skeleton: Skeleton, g: StackedGraph, node_id, sc, s,
+                root_only: bool = True, use_traj: bool = True,
+                use_ca: bool = False, use_ts: bool = False):
+    """Exact constraint error [C] of latents s [C, L] (the JAX package's
+    stacked_error: root-only, or the dense FK pass)."""
+    return compiled.error_from_residuals(_residuals(
+        skeleton, g, node_id, sc, s, root_only, use_traj=use_traj,
+        use_ca=use_ca, use_ts=use_ts))
 
 
 def _repeat_rows(tree, n: int):
     """A dataclass of [C, ...] tensors with every row repeated n times, the
     copies side by side ([C * n, ...]); nested dataclasses (the trajectory)
-    likewise."""
+    likewise.  The trajectory-set splines stay one per character: their
+    query groups the repeated rows (`compiled._ts_targets`)."""
     kw = {}
     for f in dataclasses.fields(tree):
         v = getattr(tree, f.name)
-        kw[f.name] = (_repeat_rows(v, n) if dataclasses.is_dataclass(v)
-                      else v.repeat_interleave(n, dim=0))
+        if f.name == "ts_trajs":
+            kw[f.name] = v
+        else:
+            kw[f.name] = (_repeat_rows(v, n) if dataclasses.is_dataclass(v)
+                          else v.repeat_interleave(n, dim=0))
     return type(tree)(**kw)
 
 
 def _rank_exact(skeleton, g, node, sc, samples, root_only: bool,
-                use_traj: bool):
+                cfg: WalkConfig):
     """The general selection path (the JAX walk's vmapped stacked_error):
     the exact error of every candidate, samples [C, N, L] -> [C, N], in
     chunks of candidates where C * N rows pass MAX_EXACT_ROWS."""
@@ -260,7 +325,8 @@ def _rank_exact(skeleton, g, node, sc, samples, root_only: bool,
         m = sub.shape[1]
         errors.append(exact_error(
             skeleton, g, node.repeat_interleave(m), _repeat_rows(sc, m),
-            sub.reshape(c * m, -1), root_only, use_traj).reshape(c, m))
+            sub.reshape(c * m, -1), root_only, **_families(cfg)).reshape(
+                c, m))
     return torch.cat(errors, dim=1)
 
 
@@ -298,12 +364,13 @@ def _select(g, state, sc, samples, path, path_table, goal_arc,
                    best]
 
 
-def _lm_mask(sc, use_traj: bool = True) -> torch.Tensor:
+def _lm_mask(sc, cfg: WalkConfig) -> torch.Tensor:
     """The LM's residual mask: active slots of the families the walk
-    evaluates (use_traj as asked, use_ca=use_ts=False)."""
+    evaluates (a slot of a family compiled out would degenerate to
+    quality_scale * nll)."""
     return compiled.active_mask(sc) * torch.as_tensor(
-        compiled.static_family_gate(use_traj=use_traj, use_ca=False,
-                                    use_ts=False), device=sc.kf_active.device)
+        compiled.static_family_gate(cfg.use_traj, cfg.use_ca, cfg.use_ts),
+        device=sc.kf_active.device)
 
 
 def lm_residual_fn(skeleton: Skeleton, g: StackedGraph, node_id, sc,
@@ -313,16 +380,15 @@ def lm_residual_fn(skeleton: Skeleton, g: StackedGraph, node_id, sc,
     constrained_walk_full's `residuals`.  The GMM term is `kernels.gmm_nll`:
     one launch of kernel B5 per evaluation, whose gradient gives all the
     jacobian columns of the term under `lm.linearize`.  cfg gives
-    error_scale, quality_scale and use_traj (default: WalkConfig's)."""
+    error_scale, quality_scale and the family flags (default:
+    WalkConfig's)."""
     cfg = cfg or WalkConfig()
-    act = _lm_mask(sc, cfg.use_traj)
+    act = _lm_mask(sc, cfg)
     es, qs = cfg.error_scale, cfg.quality_scale
 
     def residuals(sv):
-        r = compiled.residuals_from_coeffs(
-            skeleton, g.knots_s[node_id], sc,
-            _aligned_coeffs(g, node_id, sc, sv, root_only), root_only,
-            cfg.use_traj)
+        r = _residuals(skeleton, g, node_id, sc, sv, root_only,
+                       **_families(cfg))
         return act * (es * r + qs * _gmm_nll(g, node_id, sv)[:, None])
 
     return residuals
@@ -334,7 +400,7 @@ def _refine(skeleton, g, node_id, sc, s0, e0, cfg: WalkConfig,
     `refine`): the exact LM, or with cfg.lm_frozen the frozen model in its
     closed or linearize form.  Returns (s, err) where the exact error
     improved, else (s0, e0)."""
-    act = _lm_mask(sc, cfg.use_traj)
+    act = _lm_mask(sc, cfg)
     es, qs = cfg.error_scale, cfg.quality_scale
     lm_kw = dict(fused_step=cfg.lm_fused_step)
 
@@ -347,10 +413,11 @@ def _refine(skeleton, g, node_id, sc, s0, e0, cfg: WalkConfig,
                   if cfg.frozen_ee is not None and not root_only else None)
         args = (skeleton, g.knots_s[node_id], sc, g.eigen_s[node_id],
                 g.mean_s[node_id], g.n_basis_max, g.n_dim, g.k_s_max)
+        fam = dict(use_traj=cfg.use_traj, use_ca=cfg.use_ca, ee_node=ee_idx)
         if cfg.lm_frozen_closed and compiled.frozen_closed_supported(
                 skeleton):
             raw_make = compiled.make_frozen_root_residuals_closed(
-                *args, ee_node=ee_idx)
+                *args, **fam)
             n_lat = s0.shape[1]
 
             tables = (g.gmm_weights, g.gmm_means, g.gmm_prec_chol)
@@ -373,8 +440,7 @@ def _refine(skeleton, g, node_id, sc, s0, e0, cfg: WalkConfig,
             s_opt, _ = lm.lm_minimize(None, s0, cfg.lm_iters,
                                       make_value_jac_fn=make_vj, **lm_kw)
         else:
-            raw_make = compiled.make_frozen_root_residuals(
-                *args, ee_node=ee_idx)
+            raw_make = compiled.make_frozen_root_residuals(*args, **fam)
 
             def make_fn(sv):
                 rf = raw_make(sv)
@@ -384,7 +450,7 @@ def _refine(skeleton, g, node_id, sc, s0, e0, cfg: WalkConfig,
             s_opt, _ = lm.lm_minimize(None, s0, cfg.lm_iters,
                                       make_residual_fn=make_fn, **lm_kw)
     e_opt = exact_error(skeleton, g, node_id, sc, s_opt, root_only,
-                        cfg.use_traj)
+                        **_families(cfg))
     better = e_opt < e0
     return (torch.where(better[:, None], s_opt, s0),
             torch.minimum(e0, e_opt))
@@ -412,6 +478,7 @@ def full_walk_step(skeleton: Skeleton, g: StackedGraph,
     # each stage runs under a profiler range (walk.*) that a
     # torch.profiler trace reads; outside a trace a range costs ~1 us
     with record_function("walk.goal"):
+        step_len = g.avg_step_length[node] * cfg.step_length_factor
         goal_arc = _goal_arc(g, state, path.full_arc_length,
                              cfg.step_length_factor, cfg.end_threshold)
         sc = sc0.replace(
@@ -424,9 +491,12 @@ def full_walk_step(skeleton: Skeleton, g: StackedGraph,
             n_canonical=n_can_f, prev_last=state.prev_last,
             has_prev=torch.full((c,), has_prev, device=dev))
         sc = compiled.fill_locomotion_slots(sc, path, compiled.LocoSpec(
-            goal_arc=goal_arc, node=cfg.root_node, end_kf=n_can_f - 1.0,
+            goal_arc=goal_arc, half_arc=state.travelled + 0.5 * step_len,
+            node=cfg.root_node, end_kf=n_can_f - 1.0,
+            mid_kf=0.5 * (n_can_f - 1.0),
             dim_mask=torch.tensor([1.0, 0.0, 1.0], device=dev),
-            pos_weight=cfg.pos_weight, dir_weight=cfg.dir_weight))
+            pos_weight=cfg.pos_weight, dir_weight=cfg.dir_weight),
+            use_half=cfg.use_half)
 
     with record_function("walk.sample"):
         samples = walk_mod.sample_node_latents(g, node, draws.comp_gumbel,
@@ -438,12 +508,12 @@ def full_walk_step(skeleton: Skeleton, g: StackedGraph,
                         n_can_f, root_off, cfg, ee_chain)
         with record_function("walk.rescore"):
             err = exact_error(skeleton, g, node, sc, s, root_only,
-                              cfg.use_traj)
+                              **_families(cfg))
     else:
         # the general path: the exact evaluator ranks, its error is kept
         with record_function("walk.select"):
             errors = _rank_exact(skeleton, g, node, sc, samples, root_only,
-                                 cfg.use_traj)
+                                 cfg)
             best = torch.argmin(errors, dim=1)
             rows = torch.arange(c, device=dev)
             s, err = samples[rows, best], errors[rows, best]

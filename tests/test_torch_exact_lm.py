@@ -174,7 +174,8 @@ def test_frozen_forms_with_ee_node(setup):
     rfn = make_lin(sv)
     r_exact = ct.residuals_from_coeffs(
         s["skel_t"], st_t.knots_s[nodes], s["sc_t"],
-        cwt._aligned_coeffs(st_t, nodes, s["sc_t"], sv, False), False)
+        cwt._aligned_coeffs(st_t, nodes, s["sc_t"], sv, False),
+        root_only=False)
     np.testing.assert_allclose(rfn(sv).numpy(), r_exact.numpy(), atol=2e-3,
                                rtol=1e-4)
     r_lin, j_lin = lmt.linearize(rfn, sv)

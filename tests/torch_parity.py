@@ -204,3 +204,64 @@ def port_random_draws(draws_j):
     with one draw per character ([C, 1, K], [C, 1, L], [C, N])."""
     gc, nz, gt_ = (np.array(a) for a in draws_j)
     return port_draws((gc[:, :, None], nz[:, :, None], gt_))
+
+
+# joints of the family constraints on each model (the toy skeleton has no
+# hands: its Leg and Head stand in for them)
+FAMILY_JOINTS = {
+    "toy": dict(head="Head", spine="Spine", hand="Leg", hand2="Head"),
+    "ref": dict(head="Head", spine="Spine1", hand="RightHand",
+                hand2="LeftHand"),
+}
+FAMILIES = ("look_at", "rel_transform", "joint_rotation", "pose", "ca",
+            "traj_set", "active_range")
+LOOK_AT_TARGET = (200.0, 150.0, -300.0)
+JR_QUAT = (float(np.cos(np.pi / 12)), float(np.sin(np.pi / 12)), 0.0, 0.0)
+
+
+def ts_splines(sp_mod, granularity: int = 256):
+    """The trajectory set's two splines (built by sp_mod, the JAX package's
+    spline_path or the port's): a 100 cm one for the hand, and a 10 cm one
+    for the second joint, whose arc runs off its end within a step."""
+    return [sp_mod.build(np.array([[25.0, 100.0, 0.0], [28.0, 102.0, 50.0],
+                                   [30.0, 100.0, 100.0]], np.float32),
+                         granularity=granularity),
+            sp_mod.build(np.array([[-25.0, 100.0, 0.0],
+                                   [-25.0, 100.0, 10.0]], np.float32),
+                         granularity=granularity)]
+
+
+def add_family(mod, sp_mod, sc, skel, scale: str, family: str,
+               pose_frame=None):
+    """sc with one family's slot(s) set through `mod`'s builders (the JAX
+    package's compiled module or the port's) on `scale`'s joints; "all"
+    sets every family (the pose from pose_frame [D])."""
+    j = FAMILY_JOINTS[scale]
+    if family == "all":
+        for f in FAMILIES:
+            sc = add_family(mod, sp_mod, sc, skel, scale, f, pose_frame)
+        return sc
+    if family == "look_at":
+        return mod.set_look_at_constraint(sc, skel, j["head"],
+                                          np.asarray(LOOK_AT_TARGET), 20.0)
+    if family == "rel_transform":
+        return mod.set_relative_transform_constraint(
+            sc, skel, j["hand"], j["spine"], [10.0, -20.0, 5.0], 15.0,
+            weight=0.9)
+    if family == "joint_rotation":
+        return mod.set_joint_rotation_constraint(sc, skel, j["spine"],
+                                                 JR_QUAT, 12.0, weight=1.1)
+    if family == "pose":
+        return mod.set_pose_constraint(sc, skel, pose_frame, weight=0.5)
+    if family == "ca":
+        sc = mod.set_ca_constraint(sc, skel, j["hand"], [30.0, 100.0, 40.0])
+        return mod.set_ca_constraint(sc, skel, j["head"],
+                                     [-20.0, np.nan, 60.0], weight=0.7,
+                                     slot=1)
+    if family == "traj_set":
+        return mod.set_trajectory_set_constraint(
+            sc, skel, [j["hand"], j["hand2"]], ts_splines(sp_mod),
+            arc0=[0.0, 3.0], weight=1.3)
+    if family == "active_range":
+        return mod.set_trajectory_active_range(sc, 5.0, 40.0)
+    raise ValueError(family)
