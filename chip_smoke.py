@@ -65,11 +65,26 @@ Phases, one line each (or a few):
  12. one more root-only, ee, lm_exact, families and config-5 crowd run
      under torch.profiler: device busy and idle share, time per walk stage, the
      top kernels and each of the port's kernels (launched through ctypes,
-     so no walk stage's device time counts them).
-The checks of phases 3-8 run first, but their lines are printed after phase
-11: a kernel's device time comes from a profiler trace, and a process that
-has taken one pays more host time per launch afterwards, so the traces wait
-until the host-timed phases (9-11) are over.
+     so no walk stage's device time counts them); then one request of each
+     kind of phase 13, with its request.* ranges (plan, select, lm, emit,
+     convert, ik) and its kernel launches;
+ 13. the sequential request path, MotionGenerator.generate_motion on the
+     reference-scale model (run after phase 9): BASELINE config 3's
+     request (benchmarks/run_all.py: 50 samples, 5 LM iterations, the 8
+     best starts) and the end-keyframe request of
+     tests/test_motion_generator.py (30 samples, 8 LM iterations, capped
+     at 4 steps; its keyframe goes through the IK post-process), once to
+     warm and 3 times timed: wall seconds, p50 step latency, steps,
+     average error, objective evaluations and the launches of B2, B5 and
+     the emit kernel (B6's source) in each request, each above 0; B2 at
+     [1, 28, 28], B5 on 1 and 50 rows of one mixture and the emit kernel
+     at C = 1 (the step's and the conversion's frame counts) against their
+     twins; both requests at one LM iteration on the GPU and the CPU path
+     with the same samples (after phase 10).
+The checks of phases 3-8 and 13 run first, but their lines are printed after
+phase 11: a kernel's device time comes from a profiler trace, and a process
+that has taken one pays more host time per launch afterwards, so the traces
+wait until the host-timed phases (9-11, 13) are over.
 Then a JSON line of per-kernel results (time, launches, error against the
 twin, the bound and the one-call library time where there is one; `ms` is
 the device time, `kernel_ms` the events around the wrapper), and as
@@ -823,6 +838,277 @@ def phase_emit(stacked, device):
     return results[("crowd", True)]
 
 
+# The sequential request path (phase 13): MotionGenerator.generate_motion
+# on the reference-scale model.  BASELINE config 3's request
+# (benchmarks/run_all.py: 50 samples, 5 LM iterations, the 8 best starts)
+# and the end-keyframe request of tests/test_motion_generator.py (30
+# samples, 8 LM iterations), capped at REQUEST_KF_MAX_STEP + 1 steps: its
+# keyframe holds on every step, so uncapped it walks the planner's 101.
+REQUEST_CONFIG3 = {
+    "startPose": {"position": [0, 0, 0], "orientation": [0, 0, 0]},
+    "elementaryActions": [{
+        "action": "walk",
+        "constraints": [{"joint": "Hips", "trajectoryConstraints": [
+            {"position": [0.0, None, 0.0]}, {"position": [8.0, None, 60.0]},
+            {"position": [15.0, None, 120.0]}]}],
+    }],
+}
+REQUEST_KEYFRAME = {
+    "startPose": {"position": [0, 0, 0], "orientation": [0, 0, 0]},
+    "elementaryActions": [{
+        "action": "walk",
+        "constraints": [{"joint": "Hips", "keyframeConstraints": [{
+            "position": [10.0, None, 35.0],
+            "semanticAnnotation": {"end": True}}]}],
+    }],
+}
+REQUEST_KF_MAX_STEP = 3
+REQUEST_REPS = 3
+# GPU vs CPU request at one LM iteration (at 5, the 8-start LM at this
+# scale is chaotic: one step's error has moved 12.7 -> 4.7 between the
+# two paths): node keys and frame counts exactly, step
+# errors within 0.05 + 1e-2 |err| (phase 10's LM bound), frames within
+# WALK_FRAMES_ATOL
+REQUEST_KERNELS = ("chol_solve", "gmm_scores", "emit_frames")
+
+
+def _requests():
+    """name -> (request, config, seed)."""
+    from morphablegraphs_tpu_torch.utils.config import default_config
+    cfg3 = default_config()
+    cfg3.update(n_random_samples=50, lm_iterations=5, n_lm_starts=8)
+    cfg_kf = default_config()
+    cfg_kf.update(n_random_samples=30, lm_iterations=8,
+                  debug_max_step=REQUEST_KF_MAX_STEP)
+    return {"config3": (REQUEST_CONFIG3, cfg3, 0),
+            "keyframe": (REQUEST_KEYFRAME, cfg_kf, 1)}
+
+
+def phase_request(graph, device):
+    """Both requests through MotionGenerator(graph, device=cuda), once to
+    warm and REQUEST_REPS times timed: wall seconds, p50 step latency,
+    steps, average error, objective evaluations and the launches of B2, B5
+    and the emit kernel (B6's source) in each request, each above 0.
+    -> {name: (generator, request, median wall seconds, launches of the
+    last timed request)}."""
+    import torch
+    from morphablegraphs_tpu_torch.ops import kernels
+    from morphablegraphs_tpu_torch.synthesis.motion_generator import \
+        MotionGenerator
+    out = {}
+    for name, (mg_input, cfg, seed) in _requests().items():
+        gen = MotionGenerator(graph, cfg, seed=seed, device=device)
+        gen.generate_motion(mg_input)  # warm-up
+        walls, runs = [], []
+        for _ in range(REQUEST_REPS):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = gen.generate_motion(mg_input)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            counts = kernels.launch_counts()
+            runs.append((res, counts))
+            if not np.all(np.isfinite(res.frames)) or res.stats[
+                    "n_steps"] < 2 or len(res.frames) <= 30:
+                _fail(f"request {name}: frames not finite or too short")
+            if any(counts[k] <= 0 for k in REQUEST_KERNELS):
+                _fail(f"request {name} did not launch B2, B5 and the emit "
+                      f"kernel (B6's source): {counts}")
+        st = [r.stats for r, _ in runs]
+        print(f"request {name}: MotionGenerator.generate_motion on "
+              f"{device}, {len(walls)} timed requests: wall s "
+              f"{[round(w, 4) for w in walls]} (median "
+              f"{float(np.median(walls)):.4f}), p50 step latency s "
+              f"{[round(x['p50_step_latency'], 4) for x in st]}, steps "
+              f"{[x['n_steps'] for x in st]}, average_error "
+              f"{[round(x['average_error'], 3) for x in st]}, frames "
+              f"{[len(r.frames) for r, _ in runs]}, objective_evaluations "
+              f"{[x['objective_evaluations'] for x in st]}; launches per "
+              f"request of B2/B5/B6 (emit_frames) "
+              f"{[tuple(c[k] for k in REQUEST_KERNELS) for _, c in runs]}, "
+              f"of the other port kernels "
+              f"{sum(v for _, c in runs for k, v in c.items() if k not in REQUEST_KERNELS)}",
+              flush=True)
+        out[name] = (gen, mg_input, float(np.median(walls)), runs[-1][1])
+    return out
+
+
+def phase_request_kernels(graph, device):
+    """B2, B5 and the emit kernel at the shapes a request launches them,
+    against their twins: B2 at [1, 28, 28] (the single-start LM's solve),
+    B5 on 1 and 50 rows of one node's mixture (value and gradient, as the
+    LM's naturalness term takes them), the emit kernel at C = 1 with a
+    previous clip over the step's padded frames (the step epilogue) and
+    without one over the conversion's padded time-warped frames.
+    -> {kernel name: results}."""
+    import torch
+    from morphablegraphs_tpu_torch.models import primitive as prim_mod
+    from morphablegraphs_tpu_torch.ops import kernels, timewarp
+    from morphablegraphs_tpu_torch.synthesis.motion_generator import \
+        _pad_frames
+    res = {}
+    gen = torch.Generator(device=device).manual_seed(31)
+    j = torch.randn((1, 40, 28), generator=gen, device=device)
+    a = torch.bmm(j.transpose(1, 2), j) + 0.1 * torch.eye(28, device=device)
+    g = torch.randn((1, 28), generator=gen, device=device)
+    x_k, x_t = kernels.chol_solve(a, g), kernels.chol_solve_unrolled(a, g)
+    torch.cuda.synchronize()
+    err = (x_k - x_t).abs()
+    if bool((err > B2_ATOL + B2_RTOL * x_t.abs()).any()):
+        _fail("B2 at [1, 28, 28] disagrees with its twin")
+    bound_ms, by = _bound(_nbytes(a, g, x_k), 28 ** 3 / 3 + 2 * 28 * 28)
+    res["chol_solve"] = dict(
+        shape="[1, 28, 28]", max_abs_err=float(err.max()),
+        plain_ms=_time_ms(lambda: kernels.chol_solve_unrolled(a, g), 5),
+        bound_ms=bound_ms, bound_by=by,
+        library_ms=_time_ms(lambda: torch.linalg.solve_ex(a, g), 50))
+    _kernel_line(f"request B2 chol_solve [1, 28, 28]: max_abs_err="
+                 f"{float(err.max()):.3e} (tol {B2_ATOL}+{B2_RTOL}*|x|)",
+                 lambda: kernels.chol_solve(a, g), 50, bound_ms,
+                 f"(bound_ms={bound_ms:.6f}, {by}) twin_ms="
+                 f"{res['chol_solve']['plain_ms']:.4f} torch.linalg."
+                 f"solve_ex_ms={res['chol_solve']['library_ms']:.4f}",
+                 res["chol_solve"])
+
+    prim = graph.nodes[("walk", "leftStance")].primitive.to(device)
+    gm = prim.gmm
+    for rows in (1, 50):
+        x = 1.5 * prim_mod.sample_latent(gen, prim, rows)
+        mix = torch.zeros(rows, dtype=torch.long, device=device)
+        args = (x, gm.weights[None], gm.means[None], gm.prec_chol[None], mix)
+        nll_k, g_k = kernels.gmm_nll_and_grad(*args)
+        nll_t, g_t = kernels.gmm_nll_and_grad_ref(*args)
+        torch.cuda.synchronize()
+        worst = max(float((nll_k - nll_t).abs().max()),
+                    float((g_k - g_t).abs().max()))
+        if bool(((nll_k - nll_t).abs() > B5_ATOL + B5_RTOL
+                 * nll_t.abs()).any()) or bool(
+                ((g_k - g_t).abs() > B5_ATOL + B5_RTOL * g_t.abs()).any()):
+            _fail(f"B5 on {rows} rows of one mixture disagrees with its twin")
+        k, d = gm.means.shape
+        bound_ms, by = _bound(_nbytes(*args, nll_k, g_k),
+                              rows * k * (4 * d * d + 3 * d))
+        r = res[f"gmm_scores_{rows}"] = dict(
+            shape=f"[{rows}, K={k}, D={d}]", max_abs_err=worst,
+            plain_ms=_time_ms(lambda args=args:
+                              kernels.gmm_nll_and_grad_ref(*args), 5),
+            bound_ms=bound_ms, bound_by=by, library_ms=None)
+        _kernel_line(f"request B5 gmm_nll_and_grad [{rows}, K={k}, D={d}] "
+                     f"of one mixture: max_abs_err={worst:.3e} (tol "
+                     f"{B5_ATOL}+{B5_RTOL}*|x|)",
+                     lambda args=args: kernels.gmm_nll_and_grad(*args), 50,
+                     bound_ms, f"(bound_ms={bound_ms:.6f}, {by}) twin_ms="
+                     f"{r['plain_ms']:.4f}", r)
+
+    s = prim_mod.sample_latent(gen, prim, 1)[0]
+    f = prim.n_canonical_frames
+    step_t, step_n = timewarp.linear_time_function(f, _pad_frames(f),
+                                                   device=device)
+    conv_t, conv_n = prim_mod.time_function(
+        prim, s[prim.n_spatial:], _pad_frames(2 * f))
+    prev = prim_mod.evaluate_at(prim, s, step_t[-1:].clone())
+    for label, t_fn, n_fr, has_prev in (("step", step_t, step_n, True),
+                                        ("convert", conv_t, conv_n, False)):
+        args = (s[None, : prim.n_spatial], prim.eigen_s[None],
+                prim.mean_s[None], prim.knots_s[None],
+                torch.zeros(1, dtype=torch.long, device=device), t_fn[None],
+                n_fr.reshape(1), prev if has_prev else None, has_prev, 20)
+        f_k, l_k = kernels.emit_frames(*args)
+        f_t, l_t = kernels.emit_frames_ref(*args)
+        torch.cuda.synchronize()
+        skip = _near_equator(args, f_t)
+        keep = torch.cat([torch.ones((1, 3), dtype=torch.bool,
+                                     device=device),
+                          (~skip).repeat_interleave(4, dim=1)], dim=1)
+        err = (f_k - f_t).abs() * keep[:, None]
+        if not bool(torch.isfinite(f_k).all()) or bool(
+                (err > B6_ATOL + B6_RTOL * f_t.abs()).any()):
+            _fail(f"emit_frames at the request's {label} shape disagrees "
+                  "with its twin")
+        t_max, nd, kk = t_fn.shape[-1], f_k.shape[-1], prim.n_spatial
+        bound_ms, by = _bound(
+            _nbytes(*(x for x in args[:8] if x is not None), f_k, l_k),
+            2 * prim.n_basis * nd * kk + (8 + 10 * has_prev) * t_max * nd)
+        r = res[f"emit_frames_{label}"] = dict(
+            shape=f"[1, T={t_max}, n_basis={prim.n_basis}, n_dim={nd}, "
+            f"K={kk}] has_prev={has_prev}", max_abs_err=float(err.max()),
+            plain_ms=_time_ms(lambda args=args:
+                              kernels.emit_frames_ref(*args), 5),
+            bound_ms=bound_ms, bound_by=by, library_ms=None)
+        _kernel_line(f"request B6 emit_frames ({label}) {r['shape']}: "
+                     f"max_abs_err={float(err.max()):.3e} (tol "
+                     f"{B6_ATOL}+{B6_RTOL}*|x|)",
+                     lambda args=args: kernels.emit_frames(*args), 50,
+                     bound_ms, f"(bound_ms={bound_ms:.6f}, {by}) twin_ms="
+                     f"{r['plain_ms']:.4f}", r)
+    return res
+
+
+def _quat_frames_diff(a, b):
+    """(max abs difference of frames a, b [T, 3 + 4J] with each joint
+    quaternion compared up to its sign, the number of joint quaternions
+    that differ in sign).  The seam smoothing picks a quaternion's sign by
+    the sign of its dot with the previous clip's last frame; the synthetic
+    model's unnormalized quaternions put some of those dots near 0, where
+    the last bit of an upstream difference picks the other, equal,
+    rotation."""
+    t = a.shape[0]
+    qa, qb = a[:, 3:].reshape(t, -1, 4), b[:, 3:].reshape(t, -1, 4)
+    same, other = np.abs(qa - qb).max(-1), np.abs(qa + qb).max(-1)
+    worst = max(float(np.abs(a[:, :3] - b[:, :3]).max()),
+                float(np.minimum(same, other).max()))
+    return worst, int((other < same).sum())
+
+
+def phase_request_reference(graph):
+    """Both requests at one LM iteration on the GPU path (kernels) and on
+    the CPU path (twins), drawing the same host-made samples: node keys
+    and frame counts equal, step errors and frames (after the keyframe
+    IK) within the bounds of phase 10."""
+    import torch
+    from morphablegraphs_tpu_torch.models import primitive as prim_mod
+    from morphablegraphs_tpu_torch.synthesis.motion_generator import \
+        MotionGenerator
+
+    def host_sampler(seed):
+        gen = torch.Generator().manual_seed(seed)
+        return lambda key, n: prim_mod.sample_latent(
+            gen, graph.nodes[key].primitive, n).numpy()
+
+    for name, (mg_input, cfg, _) in _requests().items():
+        cfg = dict(cfg, lm_iterations=1)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            runs[dev] = (MotionGenerator(graph, cfg, device=dev,
+                                         sampler=host_sampler(7))
+                         .generate_motion(mg_input),
+                         time.perf_counter() - t0)
+        (a, t_gpu), (b, t_cpu) = runs["cuda"], runs["cpu"]
+        keys_ok = [s.node_key for s in a.steps] == [s.node_key
+                                                    for s in b.steps]
+        err_a = np.array([s.error for s in a.steps])
+        err_b = np.array([s.error for s in b.steps])
+        same_len = keys_ok and a.frames.shape == b.frames.shape
+        frame_err, flips = (_quat_frames_diff(a.frames, b.frames)
+                            if same_len else (float("inf"), -1))
+        print(f"request reference {name} (1 LM iteration): GPU {t_gpu:.3f} "
+              f"s vs CPU {t_cpu:.3f} s, {len(a.steps)} steps, node keys "
+              f"equal={keys_ok}, max |err| diff "
+              f"{float(np.abs(err_a - err_b).max()) if keys_ok else -1:.3e} "
+              f"(errors {np.round(err_a, 3).tolist()}), frames "
+              f"{a.frames.shape} max abs diff {frame_err:.3e} (tol "
+              f"{WALK_FRAMES_ATOL}; {flips} joint quaternions of the "
+              f"{a.frames.shape[0] * ((a.frames.shape[1] - 3) // 4)} came "
+              "out with the other sign, the same rotation)", flush=True)
+        if not same_len or np.any(np.abs(err_a - err_b)
+                                  > 0.05 + 1e-2 * np.abs(err_b)) \
+                or frame_err > WALK_FRAMES_ATOL:
+            _fail(f"request {name}: the GPU path disagrees with the CPU "
+                  "path")
+
+
 def _traj_request(end_x, end_z):
     return {
         "startPose": {"position": [0, 0, 0], "orientation": [0, 0, 0]},
@@ -1316,7 +1602,7 @@ def phase_random_crowd(name, stacked, device, card: str, reps: int = 3):
     return float(np.median(times)), fps, launches, run
 
 
-def _trace_summary(prof, device_type):
+def _trace_summary(prof, device_type, prefix: str = "walk."):
     """(kernels [(name, device ms)], stages {walk.* name: [host ms, device
     busy ms, device span ms]}) of a torch.profiler trace, read from its raw
     events: building `prof.events()`' trees of a families run (~1M events)
@@ -1333,7 +1619,7 @@ def _trace_summary(prof, device_type):
     for e in prof.profiler.kineto_results.events():
         name = e.name()
         on_device = e.device_type() == device_type
-        if name.startswith("walk."):
+        if name.startswith(prefix):
             stage = stages.setdefault(name, [0.0, 0.0, 0.0])
             stage[2 if on_device else 0] += e.duration_ns() / 1e6
             if not on_device:
@@ -1353,11 +1639,12 @@ def _trace_summary(prof, device_type):
     return [(n, ms) for n, ms, _ in kernels], stages
 
 
-def phase_profile(name, run, crowd_seconds: float):
-    """One more crowd run under torch.profiler: device busy time from the
-    CUDA kernel events, CPU / device time per walk stage (the walk.*
-    ranges of constrained_walk.full_walk_step), and each of the port's
-    kernels' device time and launches."""
+def phase_profile(name, run, crowd_seconds: float, prefix: str = "walk."):
+    """One more crowd run (or request) under torch.profiler: device busy
+    time from the CUDA kernel events, CPU / device time per stage (the
+    walk.* ranges of constrained_walk.full_walk_step, or a request's
+    request.* ranges), and each of the port's kernels' device time and
+    launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1367,7 +1654,7 @@ def phase_profile(name, run, crowd_seconds: float):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernel_events, stages = _trace_summary(
-        prof, torch.autograd.DeviceType.CUDA)
+        prof, torch.autograd.DeviceType.CUDA, prefix)
     busy_ms = sum(ms for _, ms in kernel_events)
     by_kernel, ours = {}, {}
     for kname, kms in kernel_events:
@@ -1377,7 +1664,7 @@ def phase_profile(name, run, crowd_seconds: float):
             ms, count = ours.get(port, (0.0, 0))
             ours[port] = (ms + kms, count + 1)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]
-    print(f"profile {name}: one crowd run, {len(kernel_events)} kernel "
+    print(f"profile {name}: one run, {len(kernel_events)} kernel "
           f"launches, "
           f"device busy {busy_ms:.1f} ms; wall {wall * 1e3:.1f} ms under "
           f"the profiler, {crowd_seconds * 1e3:.1f} ms without -> device "
@@ -1462,7 +1749,10 @@ def main():
         res[name]["max_abs_err"] = err
 
     serve_counts = phase_serve(graph, device)
+    requests = phase_request(graph, device)
+    res_request = phase_request_kernels(graph, device)
     phase_reference(stacked, skel)
+    phase_request_reference(graph)
     phase_random_reference(stacked)
     crowds = {name: phase_crowd(name, stacked, skel, device, smi)
               for name in CROWDS}
@@ -1477,6 +1767,10 @@ def main():
         phase_profile(name, crowds[name][4], crowds[name][0])
     phase_profile("random segments (config 5)", randoms["segments"][3],
                   randoms["segments"][0])
+    for name, (gen, mg_input, wall, _) in requests.items():
+        phase_profile(f"request {name}",
+                      lambda _, gen=gen, mg_input=mg_input:
+                      gen.generate_motion(mg_input), wall, "request.")
 
     src = "morphablegraphs_tpu_torch/csrc/"
     tpu = "morphablegraphs_tpu/ops/pallas_kernels.py:"
@@ -1491,9 +1785,19 @@ def main():
              ("crowd_back_project", "back_project.cu", 76,
               randoms["canonical"][2]),
              ("emit_frames", "back_project.cu", 76, randoms["segments"][2]))
+    # the request path's launches and the kernels at its shapes
+    req_counts = requests["config3"][3]
+    request = {"chol_solve": [res_request["chol_solve"]],
+               "gmm_scores": [res_request["gmm_scores_1"],
+                              res_request["gmm_scores_50"]],
+               "emit_frames": [res_request["emit_frames_step"],
+                               res_request["emit_frames_convert"]]}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + source,
-         "replaces": f"{tpu}{line}", "launches": counts[name], **res[name]}
+         "replaces": f"{tpu}{line}", "launches": counts[name], **res[name],
+         **({"request": {"launches": req_counts[name],
+                         "shapes": request[name]}}
+            if name in request else {})}
         for name, source, line, counts in table]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -473,6 +473,15 @@ def active_mask(sc: StepConstraints) -> torch.Tensor:
                      dim=-1)
 
 
+def active_families(sc: StepConstraints) -> frozenset:
+    """The single-slot families with an active slot in a host-side set:
+    names among "dir", "la", "rt", "jr", "pose" (residuals_from_coeffs'
+    `families`)."""
+    return frozenset(name for name, v in (
+        ("dir", sc.dir_active), ("la", sc.la_active), ("rt", sc.rt_active),
+        ("jr", sc.jr_active), ("pose", sc.pose_active)) if _any_active(v))
+
+
 def static_family_gate(use_traj: bool = True, use_ca: bool = True,
                        use_ts: bool = False) -> np.ndarray:
     """0/1 gate over the residual layout for families compiled out by the
@@ -729,7 +738,8 @@ def residuals_from_coeffs(skeleton: Skeleton, knots_s: torch.Tensor,
                           sc: StepConstraints, coeffs: torch.Tensor,
                           use_traj: bool = True, use_ca: bool = True,
                           use_ts: bool = False, root_only: bool = False,
-                          chain_fk: bool = False) -> torch.Tensor:
+                          chain_fk: bool = False,
+                          families=None) -> torch.Tensor:
     """Residuals [..., N_RESIDUALS] of aligned B-spline coefficients
     coeffs [..., n_basis, D] (the set's leading axes).  use_traj / use_ca /
     use_ts=False leave that family's slots 0 and skip its work; a set
@@ -748,7 +758,11 @@ def residuals_from_coeffs(skeleton: Skeleton, knots_s: torch.Tensor,
         own joint's quaternion;
       * the dense FK pass (`fk_global`) over every query row, the default;
       * chain_fk=True: each query through its joint's ancestor chain
-        (`fk_node`), the pose through one full pass over its row."""
+        (`fk_node`), the pose through one full pass over its row.
+    families (a set of "dir", "la", "rt", "jr", "pose", or None for all)
+    names the single-slot families to evaluate; the others are left 0
+    unevaluated, which is their value when the caller knows them
+    inactive (`active_families`)."""
     need_lin = use_traj or use_ca or use_ts
     b_all = bspline.basis_matrix(knots_s, _query_times(sc, need_lin))
     if root_only:
@@ -769,27 +783,35 @@ def residuals_from_coeffs(skeleton: Skeleton, knots_s: torch.Tensor,
     def one_node(node):
         return node[..., None, None]
 
+    def wanted(name):
+        return families is None or name in families
+
     jpos, jori = at(slice(0, MAX_KF), sc.kf_node[..., None])
     kf = _kf_residuals(sc, jpos[..., 0, :], jori[..., 0, :])
     # the direction reads joint 0's quaternion channels directly
-    dir_ = _dir_residual(sc, frames[..., _R_DIR, 3:7])
-    la = rt = pose = None
+    dir_ = _dir_residual(sc, frames[..., _R_DIR, 3:7]) if wanted("dir") \
+        else None
+    la = rt = pose = jr = None
     if not root_only:  # else inactive by contract: their slots are 0
-        hp, ho = at(slice(_R_LA, _R_LA + 1), one_node(sc.la_node))
-        la = _look_at_residual(sc, hp[..., 0, 0, :], ho[..., 0, 0, :])
-        rows_rt = slice(_R_RT, _R_RT + 1)
-        pp, po = at(rows_rt, one_node(sc.rt_parent))
-        npos, _ = at(rows_rt, one_node(sc.rt_node))
-        rt = _rel_transform_residual(sc, npos[..., 0, 0, :],
-                                     pp[..., 0, 0, :], po[..., 0, 0, :])
-        pose = _pose_residual(sc, pose_nodes())
-    row_jr = frames[..., _R_JR, :]
-    if root_only:  # joint 0's block is the aligned 3:7, any other 7:11
-        q_jr = torch.where((sc.jr_joint == 0)[..., None], row_jr[..., 3:7],
-                           row_jr[..., 7:11])
-    else:
-        q_jr = _quat_block(row_jr, sc.jr_joint)
-    jr = _jr_residual(sc, q_jr)
+        if wanted("la"):
+            hp, ho = at(slice(_R_LA, _R_LA + 1), one_node(sc.la_node))
+            la = _look_at_residual(sc, hp[..., 0, 0, :], ho[..., 0, 0, :])
+        if wanted("rt"):
+            rows_rt = slice(_R_RT, _R_RT + 1)
+            pp, po = at(rows_rt, one_node(sc.rt_parent))
+            npos, _ = at(rows_rt, one_node(sc.rt_node))
+            rt = _rel_transform_residual(sc, npos[..., 0, 0, :],
+                                         pp[..., 0, 0, :], po[..., 0, 0, :])
+        if wanted("pose"):
+            pose = _pose_residual(sc, pose_nodes())
+    if wanted("jr"):
+        row_jr = frames[..., _R_JR, :]
+        if root_only:  # joint 0's block is the aligned 3:7, any other 7:11
+            q_jr = torch.where((sc.jr_joint == 0)[..., None],
+                               row_jr[..., 3:7], row_jr[..., 7:11])
+        else:
+            q_jr = _quat_block(row_jr, sc.jr_joint)
+        jr = _jr_residual(sc, q_jr)
 
     traj = ca = ts = None
     if use_traj and sc.traj is not None:
@@ -838,16 +860,19 @@ def aligned_coeffs(prim: MotionPrimitive, s: torch.Tensor,
 def evaluate_residuals(skeleton: Skeleton, prim: MotionPrimitive,
                        sc: StepConstraints, s: torch.Tensor,
                        use_traj: bool = True, use_ca: bool = True,
-                       use_ts: bool = False,
-                       chain_fk: bool = False) -> torch.Tensor:
+                       use_ts: bool = False, chain_fk: bool = False,
+                       families=None, root_only: bool = False
+                       ) -> torch.Tensor:
     """Residual vector [N_RESIDUALS] of a latent s [L] of one primitive
     under a constraint set (numpy leaves or tensors); leading axes on s
-    need the same on the set.  Inactive slots are 0."""
+    need the same on the set.  Inactive slots are 0.  chain_fk, families
+    and root_only as in residuals_from_coeffs."""
     sc = _as_tensors(sc, s.device)
     return residuals_from_coeffs(skeleton, prim.knots_s, sc,
                                  aligned_coeffs(prim, s, sc),
                                  use_traj=use_traj, use_ca=use_ca,
-                                 use_ts=use_ts, chain_fk=chain_fk)
+                                 use_ts=use_ts, root_only=root_only,
+                                 chain_fk=chain_fk, families=families)
 
 
 def evaluate_error(skeleton: Skeleton, prim: MotionPrimitive,

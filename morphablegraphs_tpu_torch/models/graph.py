@@ -35,6 +35,17 @@ class GraphNode:
     outgoing_edges: Dict[Tuple[str, str], str] = dataclasses.field(
         default_factory=dict)
     average_step_length: float = 0.0
+    # the JAX package's space-partitioning tree; not ported, always None
+    cluster_tree: Optional[object] = None
+
+    def edges_of_type(self, transition_type: str) -> List[Tuple[str, str]]:
+        return [k for k, t in self.outgoing_edges.items()
+                if t == transition_type]
+
+    def has_transition_model(self, to_key) -> bool:
+        """Per-edge transition models are not ported: never."""
+        del to_key
+        return False
 
 
 @dataclasses.dataclass
@@ -45,6 +56,24 @@ class NodeGroup:
     end_states: List[str] = dataclasses.field(default_factory=list)
     idle_states: List[str] = dataclasses.field(default_factory=list)
     cycle_states: List[str] = dataclasses.field(default_factory=list)
+    labeled_frames: Dict[str, dict] = dataclasses.field(default_factory=dict)
+    label_to_motion_primitive_map: Dict[str, list] = dataclasses.field(
+        default_factory=dict)
+
+    def map_label_to_keyframe(self, mp_name: str, label: str,
+                              n_canonical_frames: int) -> Optional[int]:
+        """The canonical keyframe of a label annotated on a primitive
+        (-1 / "lastFrame" -> the last frame, "middle" -> the middle), or
+        None."""
+        if mp_name in self.labeled_frames \
+                and label in self.labeled_frames[mp_name]:
+            keyframe = self.labeled_frames[mp_name][label]
+            if keyframe in (-1, "lastFrame"):
+                keyframe = n_canonical_frames - 1
+            elif keyframe == "middle":
+                keyframe = n_canonical_frames / 2
+            return int(keyframe)
+        return None
 
 
 class MotionStateGraph:
@@ -82,6 +111,21 @@ class MotionStateGraph:
         group.end_states = list(info.get("end_states", []))
         group.idle_states = list(info.get("idle_states", []))
         group.cycle_states = list(info.get("cycle_states", []))
+        if info:
+            # annotations merge with the model files' keyframes
+            for mp, ann in info.get("annotations", {}).items():
+                if isinstance(ann, dict):
+                    group.labeled_frames.setdefault(mp, {}).update(ann)
+                else:
+                    group.labeled_frames[mp] = ann
+            for mp, annotations in group.labeled_frames.items():
+                if mp == "all_primitives":
+                    continue
+                for label in annotations:
+                    mps = group.label_to_motion_primitive_map.setdefault(
+                        label, [])
+                    if mp not in mps:
+                        mps.append(mp)
         if len(group.node_keys) == 1:
             self.nodes[group.node_keys[0]].node_type = NODE_TYPE_SINGLE
         else:
@@ -154,6 +198,13 @@ def build_graph_from_dict(graph_dict: dict,
             if st:
                 graph.nodes[key].average_step_length = float(
                     st.get("average_step_length", 0.0))
+            # the model files' keyframes feed the label maps
+            kf = desc["mm"].get("keyframes", {})
+            if kf:
+                group.labeled_frames.setdefault(mp_name, {}).update(kf)
+                for label in kf:
+                    group.label_to_motion_primitive_map.setdefault(
+                        label, []).append(mp_name)
         graph.apply_meta_information(action, action_data.get("info"))
         if action == "walk" and group.idle_states:
             graph.start_node = (action, group.idle_states[0])

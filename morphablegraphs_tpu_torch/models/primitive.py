@@ -8,12 +8,12 @@ eigensplines are discretized onto the canonical frame grid."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
-from ..ops import bspline, gmm as gmm_ops
+from ..ops import bspline, gmm as gmm_ops, kernels, timewarp
 
 
 @dataclasses.dataclass
@@ -30,10 +30,30 @@ class MotionPrimitive:
     n_canonical_frames: int = 0
     n_spatial: int = 0
     n_time: int = 0
+    has_time: bool = False
+    animated_joints: tuple = ()
+    keyframes: tuple = ()  # ((label, canonical frame), ...)
 
     @property
     def n_latent(self) -> int:
         return self.n_spatial + self.n_time
+
+    def keyframe_for_label(self, label: str) -> Optional[int]:
+        for k, v in self.keyframes:
+            if k == label:
+                return int(v)
+        return None
+
+    def to(self, device) -> "MotionPrimitive":
+        """The primitive with every tensor on `device`."""
+        kw = {f.name: getattr(self, f.name)
+              for f in dataclasses.fields(self)}
+        for name in ("eigen_s", "mean_s", "knots_s", "mean_t_d",
+                     "eigen_t_d"):
+            kw[name] = kw[name].to(device)
+        kw["gmm"] = gmm_ops.GMM(*(getattr(self.gmm, f.name).to(device)
+                                  for f in dataclasses.fields(gmm_ops.GMM)))
+        return MotionPrimitive(**kw)
 
 
 def _bake_translation_scale(eigen: np.ndarray, mean: np.ndarray,
@@ -64,6 +84,7 @@ def load_primitive_json(data: Dict[str, Any], name: str = "",
         n_basis = int(sspm["n_coeffs"])
         n_dim = int(sspm["n_dims"])
         knots_s = np.asarray(sspm["knots"], np.float64)
+        animated = tuple(sspm.get("animated_joints", ()))
         maxima = np.ones(3)
         n_canonical = int(round(max(knots_s))) + 1
         weights, means, covars = gmm_d["weights"], gmm_d["means"], \
@@ -77,6 +98,7 @@ def load_primitive_json(data: Dict[str, Any], name: str = "",
         n_basis = int(data["n_basis_spatial"])
         n_dim = int(data["n_dim_spatial"])
         knots_s = np.asarray(data["b_spline_knots_spatial"], np.float64)
+        animated = tuple(data.get("animated_joints", ()))
         maxima = np.asarray(data.get("translation_maxima", [1.0, 1.0, 1.0]),
                             np.float64)
         n_canonical = int(data["n_canonical_frames"])
@@ -114,7 +136,10 @@ def load_primitive_json(data: Dict[str, Any], name: str = "",
         gmm=gmm_ops.from_covars(weights, means, covars, device=device),
         name=name or str(data.get("name", "")), n_basis=n_basis,
         n_dim=n_dim, n_canonical_frames=n_canonical,
-        n_spatial=eigen_s.shape[1], n_time=eigen_t_d.shape[1])
+        n_spatial=eigen_s.shape[1], n_time=eigen_t_d.shape[1],
+        has_time=t_eigen.size > 0, animated_joints=animated,
+        keyframes=tuple(sorted((str(k), int(v)) for k, v in
+                               data.get("keyframes", {}).items())))
 
 
 def back_project_spatial(prim: MotionPrimitive,
@@ -136,3 +161,52 @@ def back_project_unwarped(prim: MotionPrimitive,
     i = torch.arange(f, dtype=torch.float32, device=alpha.device)
     t_fn = torch.clamp(i * (float(f) / max(f - 1, 1)), max=float(f - 1))
     return torch.matmul(bspline.basis_matrix(prim.knots_s, t_fn), coeffs)
+
+
+def time_function(prim: MotionPrimitive, gamma: torch.Tensor,
+                  max_frames: int, speed: float = 1.0):
+    """Temporal latents gamma [k_t] -> (time_function [max_frames],
+    n_frames int32 tensor): the warped canonical times of the output
+    frames."""
+    t_can = timewarp.canonical_time_function(prim.mean_t_d, prim.eigen_t_d,
+                                             gamma)
+    return timewarp.invert_time_function(t_can, prim.n_canonical_frames,
+                                         max_frames, speed)
+
+
+def evaluate_at(prim: MotionPrimitive, s: torch.Tensor,
+                t: torch.Tensor) -> torch.Tensor:
+    """The spatial spline of latent s [L] at canonical times t [T] ->
+    frames [T, n_dim].  On a CUDA device one launch of the frame-emit
+    kernel without a previous clip (`kernels.emit_frames`, the basis
+    weights inside the kernel); on the CPU its twin."""
+    dev = s.device
+    frames, _ = kernels.emit_frames(
+        s[None, : prim.n_spatial], prim.eigen_s[None], prim.mean_s[None],
+        prim.knots_s[None], torch.zeros(1, dtype=torch.long, device=dev),
+        t[None].to(torch.float32),
+        torch.full((1,), t.shape[0], dtype=torch.int32, device=dev), None,
+        False, 0)
+    return frames[0]
+
+
+def back_project(prim: MotionPrimitive, s: torch.Tensor, max_frames: int,
+                 use_time: bool = True, speed: float = 1.0):
+    """Latent s = (alpha | gamma) [L] -> (frames [max_frames, n_dim],
+    n_frames int32 tensor, time_function [max_frames]): the time-warped
+    timeline when the primitive has a temporal model and use_time, else the
+    canonical one; frames past n_frames repeat the last canonical pose."""
+    if prim.has_time and use_time:
+        t_fn, n_frames = time_function(
+            prim, s[prim.n_spatial: prim.n_spatial + prim.n_time],
+            max_frames, speed)
+    else:
+        t_fn, n_frames = timewarp.linear_time_function(
+            prim.n_canonical_frames, max_frames, speed, device=s.device)
+    return evaluate_at(prim, s, t_fn), n_frames, t_fn
+
+
+def sample_latent(generator: torch.Generator, prim: MotionPrimitive,
+                  n: int = 1) -> torch.Tensor:
+    """n latents [n, L] from the primitive's GMM, drawn from `generator`."""
+    return gmm_ops.sample(generator, prim.gmm, n)

@@ -81,6 +81,42 @@ class Skeleton:
 
 
 
+def add_fixed_joint_parameters_to_motion(skel: Skeleton, frames: np.ndarray,
+                                         animated_subset=None) -> np.ndarray:
+    """Expand host frames [T, 3 + 4 * len(animated_subset)] animated over a
+    joint subset to the skeleton's full animated set: joints the subset
+    lacks get their rest rotation (identity when unset).  animated_subset
+    defaults to the first joints of the skeleton's animated set."""
+    frames = np.asarray(frames)
+    if animated_subset is None:
+        n_sub = (frames.shape[-1] - 3) // 4
+        animated_subset = skel.animated_joints[:n_sub]
+    if tuple(animated_subset) == skel.animated_joints:
+        return frames
+    out = np.zeros((frames.shape[0], skel.n_frame_params), frames.dtype)
+    out[:, :3] = frames[:, :3]
+    out[:, 3::4] = 1.0  # identity w components
+    rests = skel.rest_rotations or ()
+    sub_index = {name: i for i, name in enumerate(animated_subset)}
+    for j, name in enumerate(skel.animated_joints):
+        i = sub_index.get(name)
+        if i is not None:
+            out[:, 3 + 4 * j: 7 + 4 * j] = frames[:, 3 + 4 * i: 7 + 4 * i]
+        else:
+            ni = skel.index_of(name)
+            if ni < len(rests):
+                out[:, 3 + 4 * j: 7 + 4 * j] = rests[ni]
+    return out
+
+
+def _np_from_euler(angles_deg: np.ndarray, order: str) -> np.ndarray:
+    """Host-side euler (degrees) -> quaternion (w first) in scipy's
+    intrinsic convention, the rotating-frame composition BVH uses."""
+    from scipy.spatial.transform import Rotation
+    r = Rotation.from_euler(order[1:].upper(), angles_deg, degrees=True)
+    return np.roll(r.as_quat(), 1, axis=-1)
+
+
 _CHANNEL_NAMES = {"Xposition", "Yposition", "Zposition",
                   "Xrotation", "Yrotation", "Zrotation"}
 
@@ -198,31 +234,67 @@ def _rest_table(skel: Skeleton) -> np.ndarray:
     return np.asarray(skel.rest_rotations, np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _level_tables(skel: Skeleton):
+    """The nodes grouped by depth for the level-batched FK: (order, the
+    node indices level by level; levels, (start, stop) of each level's
+    span in `order`; parent_pos, for each node of `order` past the root
+    level, its parent's position in `order`; inverse, each node's position
+    in `order`)."""
+    depth = []
+    for i in range(skel.n_nodes):
+        d, j = 0, skel.parents[i]
+        while j >= 0:
+            d, j = d + 1, skel.parents[j]
+        depth.append(d)
+    order = sorted(range(skel.n_nodes), key=lambda i: (depth[i], i))
+    where = {n: k for k, n in enumerate(order)}
+    levels, k = [], 0
+    for d in range(max(depth) + 1):
+        n = sum(1 for x in depth if x == d)
+        levels.append((k, k + n))
+        k += n
+    parent_pos = [where[skel.parents[n]] for n in order[levels[0][1]:]]
+    inverse = [where[n] for n in range(skel.n_nodes)]
+    return (np.asarray(order), tuple(levels), np.asarray(parent_pos),
+            np.asarray(inverse))
+
+
 def fk_global(skel: Skeleton, frames: torch.Tensor):
     """Global transforms of every node.  frames [..., 3 + 4J] ->
-    (positions [..., n_nodes, 3], orientations [..., n_nodes, 4])."""
-    anim_idx = _fk_tables(skel)
+    (positions [..., n_nodes, 3], orientations [..., n_nodes, 4]).
+    The nodes of one depth are transformed together, each by the same
+    per-node arithmetic as a node-by-node pass."""
+    anim_idx = np.asarray(_fk_tables(skel))
+    order, levels, parent_pos, inverse = _level_tables(skel)
+    dev, dt = frames.device, frames.dtype
     lead = frames.shape[:-1]
     quats = frames[..., 3:].reshape(lead + (skel.n_animated, 4))
-    offsets = torch.as_tensor(skel.offsets, dtype=frames.dtype,
-                              device=frames.device)
-    rest = torch.as_tensor(_rest_table(skel), dtype=frames.dtype,
-                           device=frames.device)
-    pos_list, ori_list = [], []
-    for i in range(skel.n_nodes):
-        parent = skel.parents[i]
-        local_q = (quats[..., anim_idx[i], :] if anim_idx[i] >= 0
-                   else rest[i].expand(lead + (4,)))
-        off = offsets[i].expand(lead + (3,))
-        if parent < 0:
-            pos, ori = off + frames[..., :3], local_q
-        else:
-            p_pos, p_ori = pos_list[parent], ori_list[parent]
-            pos = p_pos + quat.rotate_vec(p_ori, off)
-            ori = quat.multiply(p_ori, local_q)
-        pos_list.append(pos)
-        ori_list.append(ori)
-    return torch.stack(pos_list, dim=-2), torch.stack(ori_list, dim=-2)
+    animated = anim_idx[order] >= 0
+    rest = torch.as_tensor(_rest_table(skel)[order], dtype=dt, device=dev)
+    local_q = torch.where(
+        torch.as_tensor(animated[:, None], device=dev),
+        quats[..., torch.as_tensor(np.where(animated, anim_idx[order], 0),
+                                   device=dev), :], rest)
+    offsets = torch.as_tensor(skel.offsets[order], dtype=dt, device=dev)
+    r0, r1 = levels[0]
+    pos = offsets[r0:r1] + frames[..., None, :3]
+    ori = local_q[..., r0:r1, :]
+    parent = torch.as_tensor(parent_pos, device=dev)
+    for a, b in levels[1:]:
+        p_idx = parent[a - r1: b - r1]
+        p_pos, p_ori = pos[..., p_idx, :], ori[..., p_idx, :]
+        pos = torch.cat([pos, p_pos + quat.rotate_vec(p_ori, offsets[a:b])],
+                        dim=-2)
+        ori = torch.cat([ori, quat.multiply(p_ori, local_q[..., a:b, :])],
+                        dim=-2)
+    inv = torch.as_tensor(inverse, device=dev)
+    return pos[..., inv, :], ori[..., inv, :]
+
+
+def fk_positions(skel: Skeleton, frames: torch.Tensor) -> torch.Tensor:
+    """Global positions only: [..., n_nodes, 3]."""
+    return fk_global(skel, frames)[0]
 
 
 @functools.lru_cache(maxsize=None)

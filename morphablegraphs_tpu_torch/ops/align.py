@@ -4,6 +4,7 @@ morphablegraphs_tpu.ops.align).  Every function takes leading batch axes
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import quat
@@ -30,6 +31,15 @@ def node_aligning_2d_transform(prev_last: torch.Tensor,
     mask = torch.tensor([1.0, 0.0, 1.0], dtype=delta.dtype,
                         device=delta.device)
     return q_y, delta * mask
+
+
+def transform_from_start_pose(position: torch.Tensor,
+                              orientation_deg: torch.Tensor):
+    """(q_y, delta) placing a clip at a start pose: position [3] (NaN
+    components -> 0) and a rotation about +Y of orientation_deg degrees."""
+    pos = torch.where(torch.isnan(position), torch.zeros_like(position),
+                      position)
+    return quat.about_y(torch.deg2rad(orientation_deg)), pos
 
 
 def transform_frames(frames: torch.Tensor, q_y: torch.Tensor,
@@ -113,3 +123,44 @@ def append_frames(buffer: torch.Tensor, n_valid: torch.Tensor,
     buffer[ri, cols] = torch.where(write[:, None, None], aligned,
                                    buffer[ri, cols])
     return buffer, torch.where(write, n_valid + n_new, n_valid)
+
+
+def blend_seam_np(prev_frames, new_frames, window: int):
+    """Two-sided seam smoothing on host arrays (spatial_smoothing_method
+    "blending"): the frames within window // 2 of the seam become a linear
+    ramp between the two boundary frames, the right boundary's quaternions
+    hemisphere-aligned to the left's.  Returns copies (prev_out, new_out)."""
+    prev_frames = np.asarray(prev_frames)
+    new_frames = np.asarray(new_frames)
+    half = min(window // 2, len(prev_frames), len(new_frames))
+    if half <= 0:
+        return prev_frames, new_frames
+    left = prev_frames[-half].copy()
+    right = new_frames[half - 1].copy()
+    d = left.shape[-1]
+    for q0 in range(3, d - 3, 4):
+        if np.dot(left[q0:q0 + 4], right[q0:q0 + 4]) < 0:
+            right[q0:q0 + 4] = -right[q0:q0 + 4]
+    n = 2 * half
+    ts = (np.arange(1, n + 1, dtype=left.dtype) / (n + 1))[:, None]
+    ramp = left[None, :] * (1.0 - ts) + right[None, :] * ts
+    prev_out = prev_frames.copy()
+    new_out = new_frames.copy()
+    prev_out[-half:] = ramp[:half]
+    new_out[:half] = ramp[half:]
+    return prev_out, new_out
+
+
+def filter_root_np(frames, window: int):
+    """Box-filter the root translation channels of host frames [T, D] over
+    `window` frames (edge-padded); window <= 1 is the identity."""
+    frames = np.asarray(frames)
+    if window <= 1 or len(frames) < window:
+        return frames
+    out = frames.copy()
+    kernel = np.ones(window) / window
+    pad = window // 2
+    for c in range(3):
+        col = np.pad(frames[:, c], (pad, window - 1 - pad), mode="edge")
+        out[:, c] = np.convolve(col, kernel, mode="valid")
+    return out

@@ -87,3 +87,16 @@ def neg_log_prob_and_grad(gmm: GMM, x: torch.Tensor):
     resp = torch.softmax(lp, dim=-1)  # [..., K]
     wy = torch.einsum("...kde,...ke->...kd", gmm.prec_chol, y)
     return nll, torch.einsum("...k,...kd->...d", resp, wy)
+
+
+def sample(generator: torch.Generator, gmm: GMM, n: int) -> torch.Tensor:
+    """n draws [n, D] from one mixture: a component per draw from the
+    weights, then mu_k + L_k eps, all from `generator` (on the mixture's
+    device).  Distributionally the JAX package's `sample`; its threefry
+    stream is not reproduced."""
+    comp = torch.multinomial(gmm.weights, n, replacement=True,
+                             generator=generator)
+    eps = torch.randn((n, gmm.n_dims), generator=generator,
+                      dtype=gmm.means.dtype, device=gmm.means.device)
+    return gmm.means[comp] + torch.einsum("nde,ne->nd", gmm.cov_chol[comp],
+                                          eps)

@@ -10,6 +10,7 @@ stack (`stack_paths`, `stack_host`)."""
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -193,6 +194,11 @@ def point_at_arc_length(sp: PathSpline, arc: torch.Tensor) -> torch.Tensor:
     return point_at_u(sp, u_at_arc_length(sp, arc))
 
 
+def tangent_at_arc_length(sp: PathSpline, arc: torch.Tensor) -> torch.Tensor:
+    """Unit 3D tangents [..., Q, 3] at arc lengths arc [..., Q]."""
+    return _tangent_u(sp.points, sp.n_points, u_at_arc_length(sp, arc))
+
+
 def point_and_dir_at_arc_length(sp: PathSpline, arc: torch.Tensor):
     """(position [..., 3], unit 2D direction (x, z) [..., 2]) at one arc
     length per path; arc [...]."""
@@ -206,15 +212,24 @@ def point_and_dir_at_arc_length(sp: PathSpline, arc: torch.Tensor):
 
 
 def closest_point(sp: PathSpline, point: torch.Tensor,
-                  min_arc_length: torch.Tensor, n_refine: int = 8):
-    """Closest point at arc >= min_arc_length: masked table argmin, then
-    n_refine ternary iterations between the neighbouring grid cells, then
-    the advancing clamp.  point [..., 3], min_arc_length [...] ->
-    (pos [..., 3], arc [...], distance [...])."""
+                  min_arc_length: torch.Tensor, n_refine: int = 8,
+                  max_arc_length=None, bounded: bool = False):
+    """Closest point at arc >= min_arc_length (and with bounded, <=
+    max_arc_length: the travelled-arc update's look-ahead window): masked
+    table argmin, then n_refine ternary iterations between the neighbouring
+    grid cells, then the clamp into the window.  point [..., 3],
+    min_arc_length / max_arc_length [...] -> (pos [..., 3], arc [...],
+    distance [...])."""
     mask_dim = sp.dim_mask()[..., None, :]
     d2 = torch.sum(((sp.table_points - point[..., None, :]) * mask_dim) ** 2,
                    dim=-1)
+    min_arc_length = torch.as_tensor(min_arc_length, dtype=d2.dtype,
+                                     device=d2.device)
     valid = sp.table_arc >= (min_arc_length - 1e-6)[..., None]
+    if bounded:
+        max_arc_length = torch.as_tensor(max_arc_length, dtype=d2.dtype,
+                                         device=d2.device)
+        valid = valid & (sp.table_arc <= (max_arc_length + 1e-6)[..., None])
     d2 = torch.where(valid, d2, torch.full_like(d2, float("inf")))
     last = d2.shape[-1] - 1
     i = torch.where(valid.any(-1), torch.argmin(d2, dim=-1),
@@ -237,10 +252,32 @@ def closest_point(sp: PathSpline, point: torch.Tensor,
     arc = _arc_at_u(sp, u_best[..., None])[..., 0]
     clamped = arc < min_arc_length
     arc = torch.maximum(arc, min_arc_length)
+    if bounded:
+        max_arc = torch.maximum(max_arc_length, min_arc_length)
+        clamped = clamped | (arc > max_arc)
+        arc = torch.minimum(arc, max_arc)
     u_best = torch.where(clamped,
                          u_at_arc_length(sp, arc[..., None])[..., 0], u_best)
     pos = point_at_u(sp, u_best[..., None])[..., 0, :]
     return pos, arc, torch.sqrt(dist(u_best))
+
+
+def refine_iters_for_accuracy(full_arc_length: float,
+                              accuracy: float = 1e-3,
+                              max_iterations: int = 5000,
+                              granularity: int = GRANULARITY) -> int:
+    """Ternary-refinement iterations of `closest_point` for a world-space
+    accuracy: the table argmin brackets the optimum within ~2 cells of
+    2 * full_arc / granularity and each iteration shrinks the bracket by
+    2/3.  Rounded up to a multiple of 4 and capped at 32, except that
+    max_iterations, the search's hard budget, wins when it binds."""
+    bracket = 2.0 * max(float(full_arc_length), 1e-6) / float(granularity)
+    if accuracy <= 0.0 or accuracy >= bracket:
+        n = 4
+    else:
+        n = math.ceil(math.log(accuracy / bracket) / math.log(2.0 / 3.0))
+    n = min(-(-max(4, min(n, 32)) // 4) * 4, 32)
+    return max(1, min(n, int(max_iterations)))
 
 
 def closest_points_advancing(sp: PathSpline, points: torch.Tensor,

@@ -4,6 +4,9 @@ interpolation onto a fixed frame buffer with a valid-frame count."""
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 
@@ -76,3 +79,95 @@ def invert_time_function_dynamic(t_canonical: torch.Tensor,
     last = (n_frames - 1)[..., None]
     out = torch.where(i >= last, last_can[..., None].expand_as(out), out)
     return out, n_frames
+
+
+def canonical_time_function(mean_t_d: torch.Tensor, eigen_t_d: torch.Tensor,
+                            gamma: torch.Tensor) -> torch.Tensor:
+    """One primitive's time function t(t') = cumsum(exp(mean_t + T @ gamma))
+    - 1: mean_t_d [F], eigen_t_d [F, k_t], gamma [k_t] -> [F], strictly
+    increasing."""
+    w = mean_t_d + torch.matmul(eigen_t_d, gamma)
+    return torch.cumsum(torch.exp(w), dim=-1) - 1.0
+
+
+def invert_time_function(t_canonical: torch.Tensor, n_canonical: int,
+                         max_frames: int, speed: float = 1.0):
+    """Invert one primitive's t(t') onto max_frames output slots: an exact
+    0 first frame, round(t[-2]) / speed interior frames at linspace(1,
+    t[-2], num), an exact n_canonical - 1 last frame.  Returns
+    (time_function [max_frames], n_frames int32 tensor); slots >= n_frames
+    clamp to n_canonical - 1."""
+    dt = t_canonical.dtype
+    t_end = t_canonical[-2]
+    num = torch.clamp(torch.floor(torch.round(t_end) * (1.0 / speed)),
+                      min=1.0)
+    n_frames = torch.clamp((num + 2.0).to(torch.int32), max=max_frames)
+    i = torch.arange(max_frames, dtype=dt, device=t_canonical.device)
+    denom = torch.clamp(num - 1.0, min=1.0)
+    interior = 1.0 + (t_end - 1.0) * (i - 1.0) / denom
+    tprime = interp_cubic(interior, t_canonical,
+                          torch.arange(n_canonical, dtype=dt,
+                                       device=t_canonical.device))
+    out = torch.where(i == 0, torch.zeros_like(tprime), tprime)
+    out = torch.where(i >= (n_frames - 1),
+                      torch.full_like(out, float(n_canonical - 1)), out)
+    return out, n_frames
+
+
+def linear_time_function(n_canonical: int, max_frames: int,
+                         speed: float = 1.0, device=None):
+    """The canonical (unwarped) timeline linspace(0, F, int(F / speed))
+    clamped at F - 1: (time_function [max_frames], n_frames int32
+    tensor)."""
+    num = int(n_canonical * (1.0 / speed))
+    i = torch.arange(max_frames, dtype=torch.float32, device=device)
+    vals = torch.clamp(i * (float(n_canonical) / max(num - 1, 1)),
+                       max=float(n_canonical - 1))
+    return vals, torch.tensor(num, dtype=torch.int32, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _savgol_matrices(window: int, polyorder: int):
+    """The linear operator of a Savitzky-Golay filter with polynomial edge
+    handling (scipy's mode='interp'): (kernel [window], head [half, window],
+    tail [half, window])."""
+    half = window // 2
+    pos = np.arange(-half, half + 1, dtype=np.float64)
+    proj = np.linalg.pinv(np.vander(pos, polyorder + 1, increasing=True))
+    kernel = proj[0]
+    pos_e = np.arange(window, dtype=np.float64)
+    proj_e = np.linalg.pinv(np.vander(pos_e, polyorder + 1, increasing=True))
+    head = np.vander(np.arange(half, dtype=np.float64),
+                     polyorder + 1, increasing=True) @ proj_e
+    tail = np.vander(np.arange(window - half, window, dtype=np.float64),
+                     polyorder + 1, increasing=True) @ proj_e
+    return kernel, head, tail
+
+
+def savgol_smooth(y: torch.Tensor, window: int = 15,
+                  polyorder: int = 3) -> torch.Tensor:
+    """Savitzky-Golay filter over the last axis of y [..., N] (identity
+    when N < window): the interior a correlation with the kernel, the
+    first and last window // 2 samples from a polynomial fit of the end
+    windows."""
+    n = y.shape[-1]
+    if n < window:
+        return y
+    kernel, head, tail = (torch.as_tensor(m, dtype=y.dtype, device=y.device)
+                          for m in _savgol_matrices(window, polyorder))
+    interior = torch.matmul(y.unfold(-1, window, 1), kernel)
+    hi = torch.matmul(y[..., :window], head.T)
+    lo = torch.matmul(y[..., -window:], tail.T)
+    return torch.cat([hi, interior, lo], dim=-1)
+
+
+def smooth_time_function_np(time_function, window: int = 15,
+                            polyorder: int = 3) -> np.ndarray:
+    """Host numpy form of savgol_smooth for one time function (float64)."""
+    tf = np.asarray(time_function, np.float64)
+    if tf.shape[-1] < window:
+        return tf
+    kernel, head, tail = _savgol_matrices(window, polyorder)
+    interior = np.correlate(tf, kernel, mode="valid")
+    return np.concatenate([head @ tf[:window], interior,
+                           tail @ tf[-window:]])

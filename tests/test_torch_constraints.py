@@ -15,6 +15,7 @@ from morphablegraphs_tpu_torch.constraints import compiled as ct  # noqa: E402
 from morphablegraphs_tpu_torch.synthesis import constrained_walk as cwt  # noqa: E402
 
 import torch_parity as tp  # noqa: E402
+from torch_parity import release_jax_executables  # noqa: E402,F401
 
 N_CAND = 6
 

@@ -18,6 +18,7 @@ from morphablegraphs_tpu_torch.ops import kernels  # noqa: E402
 from morphablegraphs_tpu_torch.synthesis import walk as wt  # noqa: E402
 
 import torch_parity as tp  # noqa: E402
+from torch_parity import release_jax_executables  # noqa: E402,F401
 
 MAX_FRAMES = 64
 

@@ -28,6 +28,7 @@ from morphablegraphs_tpu_torch.synthesis import constrained_walk as cwt  # noqa:
 from morphablegraphs_tpu_torch.utils import synthetic as synt  # noqa: E402
 
 import torch_parity as tp  # noqa: E402
+from torch_parity import release_jax_executables  # noqa: E402,F401
 
 N_CAND = 3
 EE = {"toy": "Head", "ref": "RightHand"}

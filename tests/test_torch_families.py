@@ -31,6 +31,7 @@ from morphablegraphs_tpu_torch.ops import spline_path as spt  # noqa: E402
 from morphablegraphs_tpu_torch.synthesis import constrained_walk as cwt  # noqa: E402
 
 import torch_parity as tp  # noqa: E402
+from torch_parity import release_jax_executables  # noqa: E402,F401
 
 RTOL, ATOL = 1e-4, 2e-3
 N_CAND = 3

@@ -15,6 +15,7 @@ from morphablegraphs_tpu.utils import synthetic as synj  # noqa: E402
 from morphablegraphs_tpu_torch.models import skeleton as skt  # noqa: E402
 
 import torch_parity as tp  # noqa: E402
+from torch_parity import release_jax_executables  # noqa: E402,F401
 
 # FK composes ~6 (chain) to ~24 (dense) rotate/multiply pairs of unnormalized
 # quaternions on positions of ~100 cm: fp32 op-order rounding of ~1e-5

@@ -24,6 +24,7 @@ from morphablegraphs_tpu_torch.ops import spline_path as spt  # noqa: E402
 from morphablegraphs_tpu_torch.ops import timewarp as twt  # noqa: E402
 
 import torch_parity as tp  # noqa: E402
+from torch_parity import release_jax_executables  # noqa: E402,F401
 
 RTOL = ATOL = 1e-5
 

@@ -26,6 +26,7 @@ from morphablegraphs_tpu_torch.synthesis import constrained_walk as cwt  # noqa:
 from morphablegraphs_tpu_torch.synthesis import walk as wt  # noqa: E402
 
 import torch_parity as tp  # noqa: E402
+from torch_parity import release_jax_executables  # noqa: E402,F401
 
 MAX_FRAMES = 64
 # frames: fp32 back-projection of ~100-cm root channels (B6's twin against

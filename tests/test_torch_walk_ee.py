@@ -19,6 +19,7 @@ from morphablegraphs_tpu_torch.ops import kernels  # noqa: E402
 from morphablegraphs_tpu_torch.synthesis import constrained_walk as cwt  # noqa: E402
 
 import torch_parity as tp  # noqa: E402
+from torch_parity import release_jax_executables  # noqa: E402,F401
 
 N_CHARS, N_STEPS, N_SAMPLES, MAX_FRAMES = 3, 3, 128, 64
 JOINT = "Head"

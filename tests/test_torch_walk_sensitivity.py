@@ -35,6 +35,7 @@ from morphablegraphs_tpu_torch.ops import kernels  # noqa: E402
 from morphablegraphs_tpu_torch.synthesis import constrained_walk as cwt  # noqa: E402
 
 import torch_parity as tp  # noqa: E402
+from torch_parity import release_jax_executables  # noqa: E402,F401
 
 N_CHARS, N_STEPS, MAX_FRAMES, N_SAMPLES = 3, 3, 64, 128
 SERVING_TEST_KEY = 23  # test_torch_exact_lm.py's draws

@@ -3,10 +3,12 @@ paths, constraint sets and random draws for the JAX package and the port,
 handed across as numpy arrays."""
 
 import functools
+import gc
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from morphablegraphs_tpu.constraints import compiled as cj
@@ -265,3 +267,52 @@ def add_family(mod, sp_mod, sc, skel, scale: str, family: str,
     if family == "active_range":
         return mod.set_trajectory_active_range(sc, 5.0, 40.0)
     raise ValueError(family)
+
+
+def request_graphs(graph_dict: dict, bvh: str):
+    """The JAX package's graph and the port's from one graph dict, each
+    with its skeleton from `bvh`; the port's step statistics are JAX's
+    (`copy_step_statistics`)."""
+    g_j = gj.build_graph_from_dict(graph_dict)
+    g_j.skeleton = skj.load_bvh(bvh)[0]
+    g_t = gt.build_graph_from_dict(graph_dict)
+    g_t.skeleton = skt.load_bvh(bvh)[0]
+    copy_step_statistics(g_j, g_t)
+    return g_j, g_t
+
+
+def copy_step_statistics(graph_j, graph_t):
+    """Carry the JAX graph's average step lengths (drawn with
+    PRNGKey(1234)) into the port's graph (drawn from a torch.Generator):
+    the planner's end condition reads them."""
+    for key, node in graph_j.nodes.items():
+        graph_t.nodes[key].average_step_length = node.average_step_length
+
+
+def jax_key_sampler(graph_j, seed: int):
+    """The draws of the JAX MotionGenerator(seed=seed), replayed for the
+    port's sampler hook: `_next_key` splits PRNGKey(seed) once per draw and
+    each sub-key feeds one `sample_latent(sub, prim, n)`; the port calls
+    sampler(node_key, n) at the same points in the same order."""
+    from morphablegraphs_tpu.models import primitive as prj
+    state = {"key": jax.random.PRNGKey(seed)}
+
+    def sampler(node_key, n):
+        state["key"], sub = jax.random.split(state["key"])
+        return np.array(prj.sample_latent(
+            sub, graph_j.nodes[node_key].primitive, n))
+    return sampler
+
+
+@pytest.fixture(scope="module", autouse=True)
+def release_jax_executables():
+    """Module fixture (import it into a test module to use it): free every
+    XLA executable the process holds when the module ends
+    (`jax.clear_caches`; the persistent cache stays).  Every loaded
+    executable holds memory mappings and a test worker's modules
+    accumulate them; a worker that passes the kernel's limit
+    (vm.max_map_count, 65,530 by default) crashes in a later module's
+    compile or cache read."""
+    yield
+    jax.clear_caches()
+    gc.collect()
