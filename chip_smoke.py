@@ -66,8 +66,9 @@ Phases, one line each (or a few):
      under torch.profiler: device busy and idle share, time per walk stage, the
      top kernels and each of the port's kernels (launched through ctypes,
      so no walk stage's device time counts them); then one request of each
-     kind of phase 13, with its request.* ranges (plan, select, lm, emit,
-     convert, ik) and its kernel launches;
+     kind of phases 13 and 14, with its request.* ranges (plan, select, lm,
+     emit, convert, ik, and phase 14's time_opt, global_opt, ca_extra,
+     ik_trajectory, ground, hand_pose) and its kernel launches;
  13. the sequential request path, MotionGenerator.generate_motion on the
      reference-scale model (run after phase 9): BASELINE config 3's
      request (benchmarks/run_all.py: 50 samples, 5 LM iterations, the 8
@@ -78,13 +79,34 @@ Phases, one line each (or a few):
      average error, objective evaluations and the launches of B2, B5 and
      the emit kernel (B6's source) in each request, each above 0; B2 at
      [1, 28, 28], B5 on 1 and 50 rows of one mixture and the emit kernel
-     at C = 1 (the step's and the conversion's frame counts) against their
-     twins; both requests at one LM iteration on the GPU and the CPU path
-     with the same samples (after phase 10).
-The checks of phases 3-8 and 13 run first, but their lines are printed after
-phase 11: a kernel's device time comes from a profiler trace, and a process
-that has taken one pays more host time per launch afterwards, so the traces
-wait until the host-timed phases (9-11, 13) are over.
+     at C = 1 (the step's and the conversion's frame counts; phase 14's
+     shapes too) against their twins; both requests at one LM iteration on the GPU and the CPU path
+     with the same samples (after phase 10);
+ 14. the rest of the request path on the reference-scale model (run after
+     phase 13): "timed", phase 13's end-keyframe request with the keyframe
+     at 2.5 s (30 samples, 8 LM iterations, 4 steps) under the time
+     optimization, the global spatial optimization ("all", start error
+     threshold 0, unit position and orientation weights) and the
+     stance-table grounding, with a hand-pose overlay on its frames,
+     once to warm and 3 times timed; "ca", config 3's request with a
+     collision-avoidance trajectory on the Head (50 samples, 5 LM
+     iterations, 8 starts, 4 steps) in the "ik" mode (trajectory IK) with
+     the extra CA pass and the foot-plant grounding, run once.  Wall
+     seconds, p50 step latency, steps, average error, frames, the launches
+     of B2, B5 and the emit kernel, each above 0, and B5's launches inside
+     the global passes (time and spatial optimization, the extra CA pass),
+     above 0 in each; the keyframe's time error before and after the time
+     optimization (it must not grow) and the spatial optimization's move
+     of the latents (it must move them in at least one request); B5 on a window of 3 stacked
+     mixtures and the emit kernel of the rebuild against their twins (with
+     phase 13's kernels); both requests at one LM iteration on the GPU and
+     the CPU path with the same samples up to the post-process, then the
+     post-process from the GPU path's input on both, held on its stable
+     frames and by its invariants (after phase 13's); the phase's seconds.
+The checks of phases 3-8 and 13-14 run first, but their lines are printed
+after phase 11: a kernel's device time comes from a profiler trace, and a
+process that has taken one pays more host time per launch afterwards, so the
+traces wait until the host-timed phases (9-11, 13-14) are over.
 Then a JSON line of per-kernel results (time, launches, error against the
 twin, the bound and the one-call library time where there is one; `ms` is
 the device time, `kernel_ms` the events around the wrapper), and as
@@ -938,10 +960,13 @@ def phase_request_kernels(graph, device):
     """B2, B5 and the emit kernel at the shapes a request launches them,
     against their twins: B2 at [1, 28, 28] (the single-start LM's solve),
     B5 on 1 and 50 rows of one node's mixture (value and gradient, as the
-    LM's naturalness term takes them), the emit kernel at C = 1 with a
-    previous clip over the step's padded frames (the step epilogue) and
-    without one over the conversion's padded time-warped frames.
-    -> {kernel name: results}."""
+    LM's naturalness term takes them) and on 3 rows over 3 stacked
+    mixtures (mix_id = arange(3): a global pass's window of steps, phase
+    14), the emit kernel at C = 1 with a previous clip over the step's
+    padded frames (the step epilogue), without one over the conversion's
+    padded time-warped frames and without one over the canonical padded
+    frames with no seam window (the rebuild after a global pass, phase
+    14).  -> {kernel name: results}."""
     import torch
     from morphablegraphs_tpu_torch.models import primitive as prim_mod
     from morphablegraphs_tpu_torch.ops import kernels, timewarp
@@ -973,10 +998,24 @@ def phase_request_kernels(graph, device):
 
     prim = graph.nodes[("walk", "leftStance")].primitive.to(device)
     gm = prim.gmm
+    window = [graph.nodes[k].primitive.to(device)
+              for k in sorted(graph.nodes)[:3]]
+    b5_cases = []
     for rows in (1, 50):
-        x = 1.5 * prim_mod.sample_latent(gen, prim, rows)
-        mix = torch.zeros(rows, dtype=torch.long, device=device)
-        args = (x, gm.weights[None], gm.means[None], gm.prec_chol[None], mix)
+        b5_cases.append((str(rows), f"{rows} rows of one mixture", (
+            1.5 * prim_mod.sample_latent(gen, prim, rows), gm.weights[None],
+            gm.means[None], gm.prec_chol[None],
+            torch.zeros(rows, dtype=torch.long, device=device))))
+    b5_cases.append(("window", "3 rows over 3 stacked mixtures (a global "
+                     "pass's window)", (
+                         1.5 * torch.cat([prim_mod.sample_latent(gen, p, 1)
+                                          for p in window]),
+                         torch.stack([p.gmm.weights for p in window]),
+                         torch.stack([p.gmm.means for p in window]),
+                         torch.stack([p.gmm.prec_chol for p in window]),
+                         torch.arange(3, device=device))))
+    for label, what, args in b5_cases:
+        rows = args[0].shape[0]
         nll_k, g_k = kernels.gmm_nll_and_grad(*args)
         nll_t, g_t = kernels.gmm_nll_and_grad_ref(*args)
         torch.cuda.synchronize()
@@ -985,17 +1024,18 @@ def phase_request_kernels(graph, device):
         if bool(((nll_k - nll_t).abs() > B5_ATOL + B5_RTOL
                  * nll_t.abs()).any()) or bool(
                 ((g_k - g_t).abs() > B5_ATOL + B5_RTOL * g_t.abs()).any()):
-            _fail(f"B5 on {rows} rows of one mixture disagrees with its twin")
+            _fail(f"B5 on {what} disagrees with its twin")
         k, d = gm.means.shape
         bound_ms, by = _bound(_nbytes(*args, nll_k, g_k),
                               rows * k * (4 * d * d + 3 * d))
-        r = res[f"gmm_scores_{rows}"] = dict(
-            shape=f"[{rows}, K={k}, D={d}]", max_abs_err=worst,
+        r = res[f"gmm_scores_{label}"] = dict(
+            shape=f"[{rows}, K={k}, D={d}] over {args[1].shape[0]} "
+            f"mixture(s)", max_abs_err=worst,
             plain_ms=_time_ms(lambda args=args:
                               kernels.gmm_nll_and_grad_ref(*args), 5),
             bound_ms=bound_ms, bound_by=by, library_ms=None)
         _kernel_line(f"request B5 gmm_nll_and_grad [{rows}, K={k}, D={d}] "
-                     f"of one mixture: max_abs_err={worst:.3e} (tol "
+                     f"on {what}: max_abs_err={worst:.3e} (tol "
                      f"{B5_ATOL}+{B5_RTOL}*|x|)",
                      lambda args=args: kernels.gmm_nll_and_grad(*args), 50,
                      bound_ms, f"(bound_ms={bound_ms:.6f}, {by}) twin_ms="
@@ -1007,13 +1047,18 @@ def phase_request_kernels(graph, device):
                                                    device=device)
     conv_t, conv_n = prim_mod.time_function(
         prim, s[prim.n_spatial:], _pad_frames(2 * f))
+    rb_t, _ = timewarp.linear_time_function(f, _pad_frames(f),
+                                            device=device)
+    rb_n = torch.tensor(rb_t.shape[0], dtype=torch.int32, device=device)
     prev = prim_mod.evaluate_at(prim, s, step_t[-1:].clone())
-    for label, t_fn, n_fr, has_prev in (("step", step_t, step_n, True),
-                                        ("convert", conv_t, conv_n, False)):
+    for label, t_fn, n_fr, has_prev, win in (
+            ("step", step_t, step_n, True, 20),
+            ("convert", conv_t, conv_n, False, 20),
+            ("rebuild", rb_t, rb_n, False, 0)):
         args = (s[None, : prim.n_spatial], prim.eigen_s[None],
                 prim.mean_s[None], prim.knots_s[None],
                 torch.zeros(1, dtype=torch.long, device=device), t_fn[None],
-                n_fr.reshape(1), prev if has_prev else None, has_prev, 20)
+                n_fr.reshape(1), prev if has_prev else None, has_prev, win)
         f_k, l_k = kernels.emit_frames(*args)
         f_t, l_t = kernels.emit_frames_ref(*args)
         torch.cuda.synchronize()
@@ -1032,7 +1077,8 @@ def phase_request_kernels(graph, device):
             2 * prim.n_basis * nd * kk + (8 + 10 * has_prev) * t_max * nd)
         r = res[f"emit_frames_{label}"] = dict(
             shape=f"[1, T={t_max}, n_basis={prim.n_basis}, n_dim={nd}, "
-            f"K={kk}] has_prev={has_prev}", max_abs_err=float(err.max()),
+            f"K={kk}] has_prev={has_prev} window={win}",
+            max_abs_err=float(err.max()),
             plain_ms=_time_ms(lambda args=args:
                               kernels.emit_frames_ref(*args), 5),
             bound_ms=bound_ms, bound_by=by, library_ms=None)
@@ -1107,6 +1153,381 @@ def phase_request_reference(graph):
                 or frame_err > WALK_FRAMES_ATOL:
             _fail(f"request {name}: the GPU path disagrees with the CPU "
                   "path")
+
+
+# The rest of the sequential request path (phase 14): the options ROADMAP
+# item 13 finished, two requests on the reference-scale model.  "timed":
+# phase 13's end-keyframe request with a keyframe time, under the time
+# optimization, the global spatial optimization ("all", every window
+# optimized) and grounding by the stance table; "ca": config 3's
+# trajectory with a collision-avoidance trajectory on the Head, in the
+# "ik" mode with the extra pass and the foot-plant grounding.
+REQUEST_TIMED = {
+    "startPose": {"position": [0, 0, 0], "orientation": [0, 0, 0]},
+    "elementaryActions": [{
+        "action": "walk",
+        "constraints": [{"joint": "Hips", "keyframeConstraints": [{
+            "position": [10.0, None, 35.0], "time": 2.5,
+            "semanticAnnotation": {"end": True}}]}],
+    }],
+}
+REQUEST_CA = {
+    "startPose": {"position": [0, 0, 0], "orientation": [0, 0, 0]},
+    "elementaryActions": [{
+        "action": "walk",
+        "constraints": [
+            {"joint": "Hips", "trajectoryConstraints": [
+                {"position": [0.0, None, 0.0]},
+                {"position": [8.0, None, 60.0]},
+                {"position": [15.0, None, 120.0]}]},
+            {"joint": "Head", "trajectoryConstraints": [
+                {"position": [20.0, 150.0, 30.0]},
+                {"position": [20.0, 150.0, 90.0]}]}],
+    }],
+}
+# timed runs: "timed" once to warm and REQUEST_REPS times, "ca" once (its
+# passes' host time is of the same kind; phase 12 profiles both)
+OPTIONS_REPS = {"timed": REQUEST_REPS, "ca": 1}
+# the global passes whose B5 launches phase 14 counts: (module, function)
+GLOBAL_PASSES = (("global_opt", "optimize_time_over_steps"),
+                 ("global_opt", "optimize_spatial_over_steps"),
+                 ("motion_generator",
+                  "MotionGenerator._maybe_optimize_ca_extra"))
+# The post-process check (phase 14's reference): the GPU path's output
+# within POST_ATOL of the CPU path's on the frames where the CPU path's is
+# stable (moves less than STABLE_ATOL under relative nudges of -1e-6 and
+# 1e-6 of the input), at least MIN_STABLE of them.  The IK targets of the
+# synthetic model's frames are out of reach (its joint quaternions are
+# not unit, norms 0.09-8.7, so the FK puts the feet ~1e4 cm from the
+# ground) and no output frame is stable, so the check runs on the
+# captured input with unit joint quaternions: there the CPU path's
+# grounding solves bring 0.84-0.90 of the feet within 1 cm of their
+# targets, and 0.91 ("timed") and 0.28 ("ca": the Head's trajectory is
+# out of the IK's reach with the root held) of the frames are stable.
+STABLE_ATOL, POST_ATOL, MIN_STABLE = 1e-3, 1e-2, 0.2
+
+
+def _options_requests():
+    """name -> (request, config, seed) of phase 14.  The spatial
+    optimization runs at unit position and orientation weights, as the
+    CPU tests hold it against JAX: at the default 1000, whether its LM
+    accepts any of its 8 steps on this model is a near-tie decided by
+    rounding, in either package (ROADMAP, known differences)."""
+    from morphablegraphs_tpu_torch.utils.config import default_config
+    timed = default_config()
+    timed.update(n_random_samples=30, lm_iterations=8,
+                 debug_max_step=REQUEST_KF_MAX_STEP,
+                 global_spatial_optimization_mode="all",
+                 activate_motion_grounding=True)
+    timed["global_spatial_optimization_settings"] = dict(
+        timed["global_spatial_optimization_settings"],
+        start_error_threshold=0.0, position_weight=1.0,
+        orientation_weight=1.0)
+    timed["motion_grounding_settings"] = dict(
+        timed["motion_grounding_settings"],
+        generate_foot_plant_constraints=False)
+    ca = default_config()
+    ca.update(n_random_samples=50, lm_iterations=5, n_lm_starts=8,
+              debug_max_step=REQUEST_KF_MAX_STEP,
+              collision_avoidance_constraints_mode="ik",
+              optimize_collision_avoidance_constraints_extra=True,
+              activate_motion_grounding=True)
+    ca["motion_grounding_settings"] = dict(
+        ca["motion_grounding_settings"], generate_foot_plant_constraints=True)
+    return {"timed": (REQUEST_TIMED, timed, 1), "ca": (REQUEST_CA, ca, 0)}
+
+
+class _Spy:
+    """Wrap module.attr (a function, or Class.method) while the context is
+    open: every call records (args, kwargs, result, the kernel launches
+    it made); with stub, the wrapper returns stub(*args, **kwargs)
+    instead of calling the function."""
+
+    def __init__(self, module, attr, stub=None):
+        self.owner = module
+        *path, self.name = attr.split(".")
+        for p in path:
+            self.owner = getattr(self.owner, p)
+        self.stub = stub
+        self.calls = []
+
+    def __enter__(self):
+        from morphablegraphs_tpu_torch.ops import kernels
+        self.orig = getattr(self.owner, self.name)
+        fn = self.stub or self.orig
+
+        def wrapper(*a, **kw):
+            before = kernels.launch_counts()
+            out = fn(*a, **kw)
+            after = kernels.launch_counts()
+            self.calls.append((a, kw, out, {k: after[k] - before[k]
+                                            for k in after}))
+            return out
+        setattr(self.owner, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.orig)
+
+
+def _keyframe_times(prims, params, constrained, frame_time, start_frames):
+    """The output time in seconds of each time constraint's keyframe
+    (global_opt.optimize_time_over_steps' model) for latents params."""
+    import torch
+    from morphablegraphs_tpu_torch.ops import timewarp
+    t_cans = [timewarp.canonical_time_function(
+        p.mean_t_d, p.eigen_t_d, torch.as_tensor(
+            s[p.n_spatial:], device=p.mean_t_d.device)).cpu().numpy()
+        for p, s in zip(prims, params)]
+    out = []
+    for i, kf, _ in constrained:
+        prior = sum(float(t[-2]) + 2.0 for t in t_cans[:i])
+        out.append((start_frames + prior + float(t_cans[i][int(kf)]))
+                   * frame_time)
+    return out
+
+
+def _hand_poses(graph):
+    """A pick pose on the right hand for the timed request's overlay
+    (hand_pose.HandPoseGenerator, as a graph's hand_pose_info loads it)."""
+    from morphablegraphs_tpu_torch.synthesis.hand_pose import \
+        HandPoseGenerator
+    gen = HandPoseGenerator(graph.skeleton)
+    gen.add_pose("pick", {"RightHand": np.array([0.7071, 0.0, 0.7071, 0.0],
+                                                np.float32)})
+    return gen, [{"keyframe": 30, "event": "attach",
+                  "parameters": {"joint": "RightHand"}},
+                 {"keyframe": 90, "event": "detach",
+                  "parameters": {"joint": "RightHand"}}]
+
+
+def phase_options(graph, device):
+    """Phase 14: both requests through MotionGenerator(graph, device=cuda),
+    OPTIONS_REPS times each ("timed" after a warm-up): wall seconds, p50
+    step latency, steps, average error, frames and the launches of B2, B5
+    and the emit kernel in each, each above 0; the timed request's keyframe
+    time error before and after the time optimization (it must not grow),
+    the spatial optimization's largest move of a latent (above 0 in at
+    least one timed request: each draws anew, and its LM may reject every
+    step of one) and its hand-pose overlay; B5's launches inside each global pass
+    (spies around the global optimizations and the extra CA pass), above 0
+    in every pass that ran.  -> {name: (run function, median wall seconds,
+    launches of the last timed request, B5 launches per global pass)}."""
+    import torch
+    from morphablegraphs_tpu_torch.ops import kernels
+    from morphablegraphs_tpu_torch.synthesis import global_opt
+    from morphablegraphs_tpu_torch.synthesis import motion_generator as mg
+    modules = {"global_opt": global_opt, "motion_generator": mg}
+    hands, events = _hand_poses(graph)
+    out = {}
+    for name, (mg_input, cfg, seed) in _options_requests().items():
+        gen = mg.MotionGenerator(graph, cfg, seed=seed, device=device)
+
+        def run(_=None, gen=gen, mg_input=mg_input, name=name):
+            res = gen.generate_motion(mg_input)
+            if name == "timed":
+                res.frames = hands.generate_hand_poses(res.frames, events)
+            return res
+        if OPTIONS_REPS[name] > 1:
+            run()  # warm-up
+        walls, runs, moves = [], [], []
+        spies = [_Spy(modules[m], f) for m, f in GLOBAL_PASSES]
+        for _ in range(OPTIONS_REPS[name]):
+            for spy in spies:
+                spy.calls.clear()
+                spy.__enter__()
+            try:
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                res = run()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            finally:
+                for spy in spies:
+                    spy.__exit__()
+            counts = kernels.launch_counts()
+            b5 = {spy.name: sum(c[3]["gmm_scores"] for c in spy.calls)
+                  for spy in spies}
+            runs.append((res, counts, b5))
+            if not np.all(np.isfinite(res.frames)) or res.stats[
+                    "n_steps"] < 2 or len(res.frames) <= 30:
+                _fail(f"request {name}: frames not finite or too short")
+            if any(counts[k] <= 0 for k in REQUEST_KERNELS):
+                _fail(f"request {name} did not launch B2, B5 and the emit "
+                      f"kernel (B6's source): {counts}")
+            want = ({"optimize_time_over_steps", "optimize_spatial_over_steps"}
+                    if name == "timed" else {"_maybe_optimize_ca_extra"})
+            if any(b5[w] <= 0 for w in want):
+                _fail(f"request {name}: B5 launches in the global passes "
+                      f"{b5}, expected > 0 in each of {sorted(want)}")
+            if name == "timed":
+                a, kw, new, _ = spies[0].calls[0]
+                times = [_keyframe_times(a[0], p, a[2], a[3],
+                                         kw["start_frames"])
+                         for p in (a[1], new)]
+                desired = [c[2] for c in a[2]]
+                err = [sum(abs(t - d) for t, d in zip(ts, desired))
+                       for ts in times]
+                a, _, (new, _), _ = spies[1].calls[0]
+                moved = max(float(np.abs(n - o).max())
+                            for n, o in zip(new, a[3]))
+                print(f"request {name}: keyframe output times before / "
+                      f"after the time optimization "
+                      f"{[round(t, 3) for t in times[0]]} / "
+                      f"{[round(t, 3) for t in times[1]]} s against "
+                      f"{desired} s desired (summed error {err[0]:.4f} / "
+                      f"{err[1]:.4f} s); the spatial optimization moved a "
+                      f"latent by up to {moved:.4f}", flush=True)
+                moves.append(moved)
+                if err[1] > err[0]:
+                    _fail("the time optimization made the keyframe times "
+                          "worse")
+        if moves and not max(moves) > 0.0:
+            # each request draws anew; its LM may reject every step of one
+            _fail("the spatial optimization accepted no step in any timed "
+                  "request")
+        st = [r.stats for r, _, _ in runs]
+        print(f"request {name}: MotionGenerator.generate_motion on "
+              f"{device}, {len(walls)} timed requests: wall s "
+              f"{[round(w, 4) for w in walls]} (median "
+              f"{float(np.median(walls)):.4f}), p50 step latency s "
+              f"{[round(x['p50_step_latency'], 4) for x in st]}, steps "
+              f"{[x['n_steps'] for x in st]}, average_error "
+              f"{[round(x['average_error'], 3) for x in st]}, frames "
+              f"{[len(r.frames) for r, _, _ in runs]}; launches per "
+              f"request of B2/B5/B6 (emit_frames) "
+              f"{[tuple(c[k] for k in REQUEST_KERNELS) for _, c, _ in runs]}"
+              f"; B5 launches inside the global passes {runs[-1][2]}",
+              flush=True)
+        out[name] = (run, float(np.median(walls)), runs[-1][1],
+                     runs[-1][2])
+    return out
+
+
+def _unit_quats(frames):
+    """frames [T, 3 + 4J] with every joint quaternion scaled to unit
+    length."""
+    out = frames.copy()
+    q = out[:, 3:].reshape(len(out), -1, 4)
+    out[:, 3:] = (q / np.linalg.norm(q, axis=-1, keepdims=True)).reshape(
+        len(out), -1)
+    return out
+
+
+def _post_process_invariants(skel, frames_in, frames_out, ground_calls):
+    """The largest break of the post-process's invariants: the root's X, Z
+    and rotation unchanged, its height shifted by one constant (the
+    grounding's, 0 without it), and inside ground_motion every channel off
+    the legs unchanged."""
+    from morphablegraphs_tpu_torch.synthesis import grounding
+    keep = [0, 2, 3, 4, 5, 6]
+    shift = frames_out[:, 1] - frames_in[:, 1]
+    worst = max(float(np.abs(frames_out[:, keep] - frames_in[:, keep]).max()),
+                float(np.ptp(shift)) if ground_calls
+                else float(np.abs(shift).max()))
+    legs = grounding._leg_joint_mask(skel,
+                                     grounding._foot_nodes(skel, "both"))
+    kept = np.ones(frames_in.shape[1], bool)
+    kept[1] = False
+    for j in np.flatnonzero(legs):
+        kept[3 + 4 * j: 7 + 4 * j] = False
+    for a, _, g_out, _ in ground_calls:
+        worst = max(worst, float(np.abs(g_out[:, kept]
+                                        - a[1][:, kept]).max()))
+    return worst
+
+
+def phase_options_reference(graph):
+    """Both phase-14 requests at one LM iteration on the GPU path and the
+    CPU path, drawing the same host-made samples, up to the post-process
+    (stubbed: it hands back its input): node keys and frame counts equal,
+    step errors within phase 13's bound and the frames within
+    WALK_FRAMES_ATOL up to quaternion signs.  Then the post-process
+    (keyframe IK, trajectory IK, grounding) on the GPU and the CPU from the
+    GPU path's captured input with unit joint quaternions: the GPU's
+    output within POST_ATOL of the CPU's on the frames the CPU path holds
+    stable (see STABLE_ATOL), and the invariants of
+    `_post_process_invariants` exactly on both."""
+    import torch
+    from morphablegraphs_tpu_torch.models import primitive as prim_mod
+    from morphablegraphs_tpu_torch.synthesis import grounding, postprocess
+    from morphablegraphs_tpu_torch.synthesis.motion_generator import \
+        MotionGenerator
+
+    def host_sampler(seed):
+        gen = torch.Generator().manual_seed(seed)
+        return lambda key, n: prim_mod.sample_latent(
+            gen, graph.nodes[key].primitive, n).numpy()
+
+    def post(frames, args, kw, dev):
+        with _Spy(grounding, "ground_motion") as spy:
+            out = postprocess.post_process_motion(
+                args[0], frames, *args[2:], **dict(kw, device=dev))
+        return out, spy.calls
+
+    for name, (mg_input, cfg, _) in _options_requests().items():
+        cfg = dict(cfg, lm_iterations=1)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            with _Spy(postprocess, "post_process_motion",
+                      stub=lambda *a, **kw: a[1]) as spy:
+                res = MotionGenerator(graph, cfg, device=dev,
+                                      sampler=host_sampler(7)
+                                      ).generate_motion(mg_input)
+            runs[dev] = (res, spy.calls[-1], time.perf_counter() - t0)
+        (a, call, t_gpu), (b, _, t_cpu) = runs["cuda"], runs["cpu"]
+        keys_ok = [s.node_key for s in a.steps] == [s.node_key
+                                                    for s in b.steps]
+        err_a = np.array([s.error for s in a.steps])
+        err_b = np.array([s.error for s in b.steps])
+        same_len = keys_ok and a.frames.shape == b.frames.shape
+        pre_err, flips = (_quat_frames_diff(a.frames, b.frames)
+                          if same_len else (float("inf"), -1))
+        args, kw = call[0], call[1]
+        base = _unit_quats(args[1])
+        t0 = time.perf_counter()
+        out_g, ground_g = post(base, args, kw, "cuda")
+        t_post = time.perf_counter() - t0
+        out_c, ground_c = post(base, args, kw, "cpu")
+        spread = np.zeros(len(base))
+        for eps in (-1e-6, 1e-6):
+            nudged = base.copy()
+            nudged[:, 3:] *= np.float32(1 + eps)
+            spread = np.maximum(spread, np.abs(
+                post(nudged, args, kw, "cpu")[0] - out_c).max(1))
+        stable = spread < STABLE_ATOL
+        post_err = float(np.abs(out_g - out_c)[stable].max()) \
+            if stable.any() else float("inf")
+        skel = graph.skeleton
+        broken = max(_post_process_invariants(skel, base, out_g, ground_g),
+                     _post_process_invariants(skel, base, out_c, ground_c))
+        print(f"request reference {name} (1 LM iteration, post-process "
+              f"stubbed): GPU {t_gpu:.3f} s vs CPU {t_cpu:.3f} s, "
+              f"{len(a.steps)} steps, node keys equal={keys_ok}, max |err| "
+              f"diff "
+              f"{float(np.abs(err_a - err_b).max()) if keys_ok else -1:.3e} "
+              f"(errors {np.round(err_a, 3).tolist()}), frames "
+              f"{a.frames.shape} max abs diff {pre_err:.3e} (tol "
+              f"{WALK_FRAMES_ATOL}; {flips} joint quaternions with the "
+              f"other sign); the post-process from the GPU path's input "
+              f"with unit quaternions ({t_post:.3f} s on the GPU): "
+              f"{int(stable.sum())} of {len(base)} frames stable on the "
+              f"CPU (share {float(stable.mean()):.3f}, at least "
+              f"{MIN_STABLE}), GPU vs CPU on them {post_err:.3e} (tol "
+              f"{POST_ATOL}; all frames {float(np.abs(out_g - out_c).max()):.3e}), "
+              f"invariants broken by {broken:.3e} (tol 1e-3)", flush=True)
+        if not same_len or np.any(np.abs(err_a - err_b)
+                                  > 0.05 + 1e-2 * np.abs(err_b)) \
+                or pre_err > WALK_FRAMES_ATOL:
+            _fail(f"request {name}: the GPU path disagrees with the CPU "
+                  "path")
+        if not np.all(np.isfinite(out_g)) or stable.mean() < MIN_STABLE \
+                or post_err > POST_ATOL or broken > 1e-3 \
+                or float(np.abs(out_g - base).max()) <= 1e-2:
+            _fail(f"request {name}: the post-process on the GPU fails its "
+                  "check")
 
 
 def _traj_request(end_x, end_z):
@@ -1712,6 +2133,7 @@ def _resource_usage():
 
 def main():
     import torch
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
     from morphablegraphs_tpu_torch.ops import cuda_build
@@ -1750,9 +2172,15 @@ def main():
 
     serve_counts = phase_serve(graph, device)
     requests = phase_request(graph, device)
+    t14 = time.perf_counter()
+    options = phase_options(graph, device)
+    t14 = [time.perf_counter() - t14]
     res_request = phase_request_kernels(graph, device)
     phase_reference(stacked, skel)
     phase_request_reference(graph)
+    t0 = time.perf_counter()
+    phase_options_reference(graph)
+    t14.append(time.perf_counter() - t0)
     phase_random_reference(stacked)
     crowds = {name: phase_crowd(name, stacked, skel, device, smi)
               for name in CROWDS}
@@ -1771,6 +2199,13 @@ def main():
         phase_profile(f"request {name}",
                       lambda _, gen=gen, mg_input=mg_input:
                       gen.generate_motion(mg_input), wall, "request.")
+    t0 = time.perf_counter()
+    for name, (run, wall, _, _) in options.items():
+        phase_profile(f"request {name}", run, wall, "request.")
+    t14.append(time.perf_counter() - t0)
+    print(f"phase 14 seconds: requests {t14[0]:.1f}, GPU vs CPU reference "
+          f"{t14[1]:.1f}, their profiles (phase 12) {t14[2]:.1f}; total "
+          f"{sum(t14):.1f}", flush=True)
 
     src = "morphablegraphs_tpu_torch/csrc/"
     tpu = "morphablegraphs_tpu/ops/pallas_kernels.py:"
@@ -1787,15 +2222,26 @@ def main():
              ("emit_frames", "back_project.cu", 76, randoms["segments"][2]))
     # the request path's launches and the kernels at its shapes
     req_counts = requests["config3"][3]
+    by_request = {name: r[3] for name, r in requests.items()}
+    by_request.update({name: o[2] for name, o in options.items()})
+    b5_global = {name: o[3] for name, o in options.items()}
     request = {"chol_solve": [res_request["chol_solve"]],
                "gmm_scores": [res_request["gmm_scores_1"],
-                              res_request["gmm_scores_50"]],
+                              res_request["gmm_scores_50"],
+                              res_request["gmm_scores_window"]],
                "emit_frames": [res_request["emit_frames_step"],
-                               res_request["emit_frames_convert"]]}
+                               res_request["emit_frames_convert"],
+                               res_request["emit_frames_rebuild"]]}
+    print(f"chip_smoke seconds: {time.perf_counter() - t_start:.1f}",
+          flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + source,
          "replaces": f"{tpu}{line}", "launches": counts[name], **res[name],
          **({"request": {"launches": req_counts[name],
+                         "launches_by_request": {
+                             r: c[name] for r, c in by_request.items()},
+                         **({"launches_in_global_passes": b5_global}
+                            if name == "gmm_scores" else {}),
                          "shapes": request[name]}}
             if name in request else {})}
         for name, source, line, counts in table]}), flush=True)

@@ -84,6 +84,8 @@ class MotionStateGraph:
         self.node_groups: Dict[str, NodeGroup] = {}
         self.skeleton: Optional[Skeleton] = None
         self.start_node: Optional[Tuple[str, str]] = None
+        # a HandPoseGenerator when the graph dict carries hand_pose_info
+        self.hand_pose_generator = None
 
     def add_transition(self, from_key, to_key):
         self.nodes[from_key].outgoing_edges[to_key] = self._transition_type(
@@ -224,6 +226,10 @@ def build_graph_from_dict(graph_dict: dict,
     graph.update_motion_stats(torch.Generator().manual_seed(stats_seed))
     if "startNode" in graph_dict:
         graph.start_node = tuple(graph_dict["startNode"])
+    if "hand_pose_info" in graph_dict:
+        from ..synthesis.hand_pose import HandPoseGenerator
+        graph.hand_pose_generator = HandPoseGenerator(graph.skeleton)
+        graph.hand_pose_generator.init_from_desc(graph_dict["hand_pose_info"])
     return graph
 
 

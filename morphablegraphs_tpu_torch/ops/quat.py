@@ -65,3 +65,24 @@ def frame_fix_signs(frames: torch.Tensor,
     quats = fix_signs(quats, ref)
     return torch.cat([frames[..., :3],
                       quats.reshape(frames.shape[:-1] + (-1,))], dim=-1)
+
+
+def slerp(q0: torch.Tensor, q1: torch.Tensor, t) -> torch.Tensor:
+    """Spherical linear interpolation on the shorter arc; nlerp where the
+    quaternions are nearly parallel (sin theta < 1e-5).  t is a scalar or
+    one weight per quaternion."""
+    q0 = normalize(q0)
+    q1 = normalize(q1)
+    d = torch.sum(q0 * q1, dim=-1, keepdim=True)
+    q1 = torch.where(d < 0.0, -q1, q1)
+    d = torch.clamp(torch.abs(d), -1.0, 1.0)
+    theta = torch.arccos(d)
+    sin_theta = torch.sin(theta)
+    t = torch.as_tensor(t, dtype=q0.dtype, device=q0.device)
+    if t.dim() == q0.dim() - 1:
+        t = t[..., None]
+    near = sin_theta < 1e-5
+    sin_c = torch.clamp(sin_theta, min=_EPS)
+    w0 = torch.where(near, 1.0 - t, torch.sin((1.0 - t) * theta) / sin_c)
+    w1 = torch.where(near, t, torch.sin(t * theta) / sin_c)
+    return normalize(w0 * q0 + w1 * q1)

@@ -29,6 +29,7 @@ from ..models.graph import MotionStateGraph, stack_graph
 from ..ops import kernels, spline_path
 from ..synthesis import constrained_walk as cw
 from ..synthesis import walk as walk_mod
+from ..utils import device as device_mod
 from ..utils.config import default_config
 
 _MAX_PATH_POINTS = spline_path.MAX_PATH_POINTS
@@ -71,11 +72,7 @@ class BatchedGenerator:
                  max_step_frames: int = 64, full_constraints: bool = True,
                  lm_iters: int = 3, device=None):
         self.graph = graph
-        self.device = torch.device(device or "cuda")
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("BatchedGenerator runs on a CUDA device and "
-                               "none is available; pass device='cpu' to "
-                               "run on the CPU")
+        self.device = device_mod.resolve(device, "BatchedGenerator")
         self.stacked = stack_graph(graph, device=self.device)
         self.config = config or default_config()
         self.n_steps = n_steps

@@ -3,9 +3,14 @@ of morphablegraphs_tpu.synthesis.motion_generator).
 
 A host loop plans each action's walk (start node, then transitions scored
 by best-of-K samples), runs each step's selection, LM and epilogue on the
-generator's device (`synthesis.generator`), re-projects every step with
-its time warp and applies the keyframe IK edits.  It runs on the CUDA
-device unless given device="cpu" (the kernels' twins).
+generator's device (`synthesis.generator`), refines each action's last
+steps jointly (`global_opt`, global_spatial_optimization_mode) and its
+collision-avoidance steps again (optimize_collision_avoidance_constraints_
+extra), moves timed keyframes onto their times (`global_opt`,
+use_global_time_optimization), re-projects every step with its time warp
+and post-processes the motion: keyframe IK, trajectory IK (the "ik"
+collision-avoidance mode) and grounding (activate_motion_grounding).  It
+runs on the CUDA device unless given device="cpu" (the kernels' twins).
 
 Random draws come from a sampler hook, sampler(node_key, n) -> [n, L],
 called where the JAX package calls `sample_latent(self._next_key(), prim,
@@ -15,9 +20,8 @@ torch.Generator seeded with `seed` on the device; threefry's stream is
 not reproduced, so parity runs hand in the JAX package's draws.
 
 What the port does not do raises NotImplementedError naming its ROADMAP
-item rather than being skipped: transition models, cluster-tree search,
-global spatial and time optimization, the extra collision-avoidance pass
-and the "ik" collision-avoidance mode, motion grounding.
+item rather than being skipped: transition models (item 14) and
+cluster-tree search (item 15).
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from ..models.graph import (MotionStateGraph, NODE_TYPE_CYCLE_END,
                             NODE_TYPE_END, NODE_TYPE_SINGLE,
                             NODE_TYPE_STANDARD)
 from ..ops import align, spline_path, timewarp
+from ..utils import device as device_mod
 from ..utils.config import default_config
 from . import action_builder, generator
 
@@ -84,11 +89,7 @@ class MotionGenerator:
         if self.config.get("verbose"):
             from ..utils.log import LOG_MODE_DEBUG, set_log_mode
             set_log_mode(LOG_MODE_DEBUG)
-        self.device = torch.device(device or "cuda")
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("MotionGenerator runs on a CUDA device and "
-                               "none is available; pass device='cpu' to "
-                               "run on the CPU")
+        self.device = device_mod.resolve(device, "MotionGenerator")
         self.generator = torch.Generator(device=self.device).manual_seed(
             seed)
         self.sampler = sampler or self._gmm_sampler
@@ -121,13 +122,6 @@ class MotionGenerator:
         if cfg.get("constrained_sampling_mode",
                    "random_discrete") == "cluster_tree_search":
             _refuse('constrained_sampling_mode="cluster_tree_search"', 15)
-        if cfg.get("global_spatial_optimization_mode", "none") != "none":
-            _refuse("global_spatial_optimization_mode (global_opt)", 13)
-        if cfg.get("optimize_collision_avoidance_constraints_extra", False):
-            _refuse("optimize_collision_avoidance_constraints_extra", 13)
-        if cfg.get("activate_motion_grounding", False):
-            _refuse("activate_motion_grounding (grounding.ground_motion)",
-                    13)
 
     # ------------------------------------------------------------------
     def generate_motion(self, mg_input: dict, complete_motion_vector: bool = True,
@@ -137,6 +131,9 @@ class MotionGenerator:
         self._check_config()
         t_start = time.time()
         self._step_times = []
+        # per action with collision-avoidance trajectories in the "ik"
+        # mode: (trajectories, first step, end step), for _post_process
+        self._ca_ik_spans = []
         parsed = read_input(mg_input,
                             activate_coordinate_transform=activate_coordinate_transform,
                             activate_joint_mapping=activate_joint_mapping,
@@ -157,7 +154,7 @@ class MotionGenerator:
                 acs, frames, steps, prev_node_key)
             action_step_spans.append((acs.action_name, first_step, len(steps)))
 
-        self._check_time_constraints(steps)
+        self._maybe_optimize_time(steps, action_step_spans)
         with record_function("request.convert"):
             warped = self._convert_with_time_warp(
                 steps, complete_motion_vector=complete_motion_vector)
@@ -186,13 +183,10 @@ class MotionGenerator:
     def _generate_action(self, acs, frames, steps, prev_node_key,
                          max_steps: int = 100):
         """One action's walk: the start node, then transitions until an end
-        state."""
-        if (self.config.get("collision_avoidance_constraints_mode",
-                            "direct_connection") == "ik"
-                and acs.ca_trajectories):
-            _refuse('collision_avoidance_constraints_mode="ik" with '
-                    "collision-avoidance trajectories (trajectory IK)", 13)
+        state; then the global spatial optimization and the extra
+        collision-avoidance pass over its steps."""
         graph = self.graph
+        first_idx = len(steps)
         travelled = 0.0
         full_arc = acs.full_arc_length
         arc_of_end = self._end_step_arc_length(acs)
@@ -218,7 +212,134 @@ class MotionGenerator:
                 is_last_step=(next_type == NODE_TYPE_END))
             node_type = graph.nodes[node_key].node_type
             n += 1
+        frames = self._maybe_optimize_globally(steps, frames, acs)
+        frames = self._maybe_optimize_ca_extra(steps, frames, acs, first_idx)
+        if (self.config.get("collision_avoidance_constraints_mode",
+                            "direct_connection") == "ik"
+                and acs.ca_trajectories and len(steps) > first_idx):
+            self._ca_ik_spans.append(
+                (list(acs.ca_trajectories), first_idx, len(steps)))
         return frames, node_key
+
+    def _maybe_optimize_ca_extra(self, steps, frames, acs, first_idx: int):
+        """With optimize_collision_avoidance_constraints_extra and CA
+        trajectories on the action: re-optimize every step of the action
+        by the LM against the trajectory-set slots of those trajectories
+        alone (each joint's start arc the closest point of its position in
+        the last rebuilt frame), rebuilding the motion from the action's
+        first step as it goes.  Returns the rebuilt motion."""
+        if not self.config.get(
+                "optimize_collision_avoidance_constraints_extra", False):
+            return frames
+        skel = self.graph.skeleton
+        ca = [t for t in acs.ca_trajectories
+              if t.joint in skel.node_names][:compiled.MAX_TS_JOINTS]
+        if not ca or first_idx >= len(steps):
+            return frames
+        from ..models.skeleton import fk_positions
+        dev = self.device
+        joints = [t.joint for t in ca]
+        trajs = [spline_path.build(t.control_points,
+                                   max_points=spline_path.MAX_PATH_POINTS,
+                                   unconstrained_dims=t.unconstrained_dims)
+                 for t in ca]
+        trajs_dev = [sp.to(dev) for sp in trajs]
+        settings = self.config["local_optimization_settings"]
+        n_iters = int(self.config.get("lm_iterations", 10))
+        prefix = (frames[:steps[first_idx].start_frame]
+                  if frames is not None else None)
+        rebuilt = prefix if prefix is not None and len(prefix) else None
+        with record_function("request.ca_extra"):
+            for step in steps[first_idx:]:
+                prim = self._prim(step.node_key)
+                sc = compiled.empty_step_constraints(skel,
+                                                     prim.n_canonical_frames)
+                if rebuilt is not None:
+                    pts = fk_positions(skel, torch.as_tensor(
+                        rebuilt[-1], dtype=torch.float32, device=dev))
+                    zero = torch.zeros((), device=dev)
+                    arc0 = [float(spline_path.closest_point(
+                        sp, pts[skel.index_of(j)], zero)[1])
+                        for j, sp in zip(joints, trajs_dev)]
+                    sc = compiled.set_alignment_from_prev(sc, rebuilt[-1])
+                else:
+                    arc0 = [0.0] * len(joints)
+                    sc = compiled.set_alignment_from_start_pose(
+                        sc, acs.start_pose_position,
+                        acs.start_pose_orientation_y)
+                sc = compiled.set_trajectory_set_constraint(
+                    sc, skel, joints, trajs, arc0=arc0)
+                s_opt, _ = generator.refine_lm(
+                    skel, prim, generator.device_constraints(sc, dev),
+                    torch.as_tensor(step.parameters, device=dev)[None],
+                    n_iters=n_iters,
+                    error_scale=float(settings.get("error_scale_factor",
+                                                   1.0)),
+                    quality_scale=float(settings.get("quality_scale_factor",
+                                                     0.1)),
+                    use_traj=False, use_ca=False, use_ts=True)
+                step.parameters = s_opt[0].cpu().numpy()
+                self._objective_evaluations += 2 * n_iters
+                rebuilt = self._rebuild_step(rebuilt, step)
+        return rebuilt
+
+    def _maybe_optimize_globally(self, steps, frames, acs):
+        """The global spatial optimization of the action's last max_steps
+        steps (global_spatial_optimization_mode): "all" on actions with
+        user constraints, "two_hands" on two-hand actions, "trajectory_end"
+        on actions with a root trajectory; skipped below two steps or
+        below start_error_threshold average error.  The window's weights
+        are adapted (`global_opt.adapt_constraint_weights`), its spatial
+        latents refined jointly, and the motion rebuilt from them."""
+        cfg = self.config
+        mode = cfg.get("global_spatial_optimization_mode", "none")
+        if mode == "none":
+            return frames
+        if mode == "all" and not acs.contains_user_constraints:
+            return frames
+        if mode == "two_hands" and not acs.contains_two_hands_constraints:
+            return frames
+        if mode == "trajectory_end" and acs.root_trajectory is None:
+            return frames
+        settings = cfg["global_spatial_optimization_settings"]
+        window = [s for s in steps if s.step_constraints is not None][
+            -int(settings["max_steps"]):]
+        if len(window) < 2:
+            return frames
+        avg_err = float(np.mean([s.error for s in window]))
+        if avg_err < float(settings.get("start_error_threshold", 0.0)):
+            return frames
+        from . import global_opt
+        scs = global_opt.adapt_constraint_weights(
+            [s.step_constraints for s in window], mode,
+            float(settings.get("position_weight", 1000.0)),
+            float(settings.get("orientation_weight", 1000.0)))
+        new_params, _ = global_opt.optimize_spatial_over_steps(
+            self.graph.skeleton, [self._prim(s.node_key) for s in window],
+            scs, [s.parameters for s in window],
+            quality_scale=float(settings.get("quality_scale_factor", 100.0))
+            * 1e-6, device=self.device)
+        for s, p in zip(window, new_params):
+            s.parameters = p
+        frames = None
+        for step in steps:
+            frames = self._rebuild_step(frames, step)
+        return frames
+
+    def _rebuild_step(self, frames, step):
+        """Append step's clip, re-projected on the canonical timeline from
+        its latent (the frame-emit kernel on a CUDA device), to the motion
+        frames (None: place it at the start pose), and point the step at
+        its rows."""
+        prim = self._prim(step.node_key)
+        f, n, _ = prim_mod.back_project(
+            prim, torch.as_tensor(step.parameters, device=self.device),
+            max_frames=_pad_frames(prim.n_canonical_frames), use_time=False)
+        n = int(n)
+        frames = self._append_padded(frames, f, n, self._smoothing_window())
+        step.start_frame = len(frames) - n
+        step.end_frame = len(frames) - 1
+        return frames
 
     def _is_end_state(self, node_type, acs, frames, travelled, arc_of_end,
                       full_arc, n_total_steps):
@@ -492,13 +613,46 @@ class MotionGenerator:
             pos_weight=float(loco.pos_weight),
             dir_weight=float(loco.dir_weight))
 
-    def _check_time_constraints(self, steps):
-        """Steps carrying time constraints need the global time
-        optimization, which is not ported."""
-        if (self.config.get("use_global_time_optimization", True)
-                and any(s.time_constraints for s in steps)):
-            _refuse("global time optimization of keyframe time constraints "
-                    "(global_opt)", 13)
+    def _maybe_optimize_time(self, steps, action_spans):
+        """The global time optimization (use_global_time_optimization) of
+        steps carrying keyframe times: once per action, over the window of
+        its last optimized_actions actions; the steps before the window
+        count as their fixed warped frames, and each window sees the
+        gammas earlier windows set."""
+        if not self.config.get("use_global_time_optimization", True):
+            return
+        if not any(s.time_constraints for s in steps):
+            return
+        from . import global_opt
+        skel = self.graph.skeleton
+        frame_time = skel.frame_time if skel is not None else 1.0 / 30
+        settings = self.config["global_time_optimization_settings"]
+        n_actions = max(int(settings.get("optimized_actions", 2)), 1)
+
+        def warped_len(step) -> float:
+            prim = self._prim(step.node_key)
+            gamma = torch.as_tensor(step.parameters[prim.n_spatial:],
+                                    device=self.device)
+            t_can = timewarp.canonical_time_function(
+                prim.mean_t_d, prim.eigen_t_d, gamma)
+            return float(t_can[-2] + 2.0)
+
+        for idx, span in enumerate(action_spans):
+            lo = action_spans[max(idx - (n_actions - 1), 0)][1]
+            window = steps[lo: span[2]]
+            constrained = [(i, kf, t) for i, s in enumerate(window)
+                           for kf, t in s.time_constraints]
+            if not constrained:
+                continue
+            start_frames = float(sum(warped_len(s) for s in steps[:lo]))
+            new_params = global_opt.optimize_time_over_steps(
+                [self._prim(s.node_key) for s in window],
+                [s.parameters for s in window], constrained, frame_time,
+                quality_scale=float(settings.get("quality_scale_factor",
+                                                 1e-4)),
+                start_frames=start_frames, device=self.device)
+            for s, p in zip(window, new_params):
+                s.parameters = p
 
     def _append_padded(self, frames, f, n: int, window: int):
         """Align a padded clip f [M, D] to the motion so far (or place it
@@ -547,7 +701,9 @@ class MotionGenerator:
         return aligned
 
     def _post_process(self, frames, steps):
-        """The keyframe IK edits of the steps' user constraints."""
+        """The keyframe IK edits of the steps' user constraints, the
+        trajectory IK edits of the "ik" mode's collision-avoidance
+        trajectories over their actions' output frames, and grounding."""
         if frames is None or len(frames) == 0:
             return frames
         from . import postprocess
@@ -564,8 +720,20 @@ class MotionGenerator:
             constrain_place_orientation=bool(
                 ik_settings.get("constrain_place_orientation", False))
         ) if constraint_specs else []
+        skel = self.graph.skeleton
+        ik_trajectories = []
+        for trajs, i0, i1 in self._ca_ik_spans:
+            sf, ef = steps[i0].start_frame, steps[i1 - 1].end_frame
+            ik_trajectories += [postprocess.IKTrajectoryConstraint(
+                joint=t.joint, spline=spline_path.build(
+                    t.control_points, max_points=spline_path.MAX_PATH_POINTS,
+                    unconstrained_dims=t.unconstrained_dims),
+                start_frame=sf, end_frame=ef, fixed_range=False,
+                unconstrained_dims=tuple(t.unconstrained_dims))
+                for t in trajs if t.joint in skel.node_names]
         return postprocess.post_process_motion(
-            self.graph.skeleton, frames, steps, ik_constraints, self.config,
+            skel, frames, steps, ik_constraints, self.config,
+            scene=self.scene_interface, ik_trajectories=ik_trajectories,
             device=self.device)
 
     # -- final conversion ----------------------------------------------

@@ -1,11 +1,13 @@
-"""Post-processing of a synthesized motion: keyframe IK edits (port of
-morphablegraphs_tpu.synthesis.postprocess, the keyframe part).
+"""Post-processing of a synthesized motion (port of
+morphablegraphs_tpu.synthesis.postprocess): keyframe IK edits, the
+trajectory IK pass and grounding.
 
 Each user keyframe constraint becomes an IK constraint at an output frame,
-solved on the frame by `ops.ik.solve_ik` (on the frames' device) and
-blended into the surrounding window on the host.  The trajectory IK pass
-(collision_avoidance_constraints_mode "ik") and motion grounding are not
-ported: `post_process_motion` refuses them."""
+solved on the frame by `ops.ik.solve_ik` and blended into the surrounding
+window on the host.  A trajectory constraint over a frame range (the
+collision-avoidance "ik" mode) is one `ops.ik.solve_ik_frames` over the
+range.  Everything runs on the CUDA device unless the caller passes
+device="cpu"."""
 
 from __future__ import annotations
 
@@ -16,9 +18,12 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from ..models.skeleton import Skeleton, fk_global
+from ..models.skeleton import Skeleton, fk_global, fk_positions
 from ..ops import ik as ik_ops
 from ..ops import quat as quat_ops
+from ..ops import spline_path
+from ..utils import device as device_mod
+from . import grounding
 
 # actions whose IK orientation constraints are ignored unless
 # constrain_place_orientation is set
@@ -75,6 +80,84 @@ def create_ik_constraints(graph, steps, constraint_specs,
     return out
 
 
+@dataclasses.dataclass
+class IKTrajectoryConstraint:
+    """A joint's trajectory over an output frame range (inclusive), solved
+    by the trajectory IK pass: what the collision-avoidance "ik" mode makes
+    of each CA trajectory.  spline: a built PathSpline.  fixed_range=False
+    starts the target arcs at the closest point of the joint's position at
+    start_frame.  The pass sets one target per frame.  unconstrained_dims
+    follow the joint's current path."""
+
+    joint: str
+    spline: object
+    start_frame: int
+    end_frame: int  # inclusive
+    fixed_range: bool = False
+    unconstrained_dims: tuple = ()
+
+
+def apply_ik_trajectory_constraints(skeleton: Skeleton, frames: np.ndarray,
+                                    constraints: List[IKTrajectoryConstraint],
+                                    n_iters: int = 10,
+                                    blend_window: int = 10,
+                                    device=None) -> np.ndarray:
+    """Pull each constraint's joint onto its trajectory across its frame
+    range: the targets advance uniformly in arc length from the start arc
+    (0, or the closest point of the joint's first position) to the
+    spline's end, one per frame; one IK pass over the range's frames
+    (every joint but the root moves); the edit ramps linearly to 0 over blend_window frames
+    (at most half the range) at both edges.  Constraints apply in order."""
+    dev = device_mod.resolve(device, "apply_ik_trajectory_constraints")
+    frames = frames.copy()
+    m = ik_ops.MAX_IK_CONSTRAINTS
+    for c in constraints:
+        if c.joint not in skeleton.node_names:
+            continue
+        s = int(np.clip(c.start_frame, 0, len(frames) - 1))
+        e = int(np.clip(c.end_frame, 0, len(frames) - 1))
+        if e <= s:
+            continue
+        n = e - s + 1
+        node_idx = skeleton.index_of(c.joint)
+        batch = torch.as_tensor(np.asarray(frames[s:e + 1], np.float32),
+                                device=dev)
+        cur = fk_positions(skeleton, batch)[:, node_idx]  # [n, 3]
+        sp = c.spline.to(dev)
+        full_arc = float(sp.full_arc_length)
+        if c.fixed_range:
+            arc0 = 0.0
+        else:
+            arc0 = float(spline_path.closest_point(
+                sp, cur[0], torch.zeros((), device=dev))[1])
+        arcs = torch.as_tensor(
+            arc0 + (full_arc - arc0) * np.linspace(0.0, 1.0, n,
+                                                   dtype=np.float32),
+            device=dev)
+        pts = spline_path.point_at_arc_length(sp, arcs)  # [n, 3]
+        for d_ in c.unconstrained_dims:
+            pts[:, d_] = cur[:, d_]
+        targets = torch.zeros((n, m, 3), device=dev)
+        targets[:, 0] = pts
+        nodes = torch.zeros((n, m), dtype=torch.long, device=dev)
+        nodes[:, 0] = node_idx
+        mask = torch.zeros((n, m), device=dev)
+        mask[:, 0] = 1.0
+        joint_mask = torch.ones(skeleton.n_animated, device=dev)
+        joint_mask[0] = 0.0  # the root stays the walk's alignment anchor
+        edited = ik_ops.solve_ik_frames(
+            skeleton, batch, nodes, targets, mask, joint_mask,
+            n_iters=n_iters).cpu().numpy()
+        w = max(1, min(int(blend_window), n // 2))
+        ramp = np.ones(n, np.float32)
+        edge = np.linspace(0.0, 1.0, w + 1, dtype=np.float32)[1:]
+        ramp[:w] = np.minimum(ramp[:w], edge)
+        ramp[n - w:] = np.minimum(ramp[n - w:], edge[::-1])
+        frames[s:e + 1] = (frames[s:e + 1]
+                           + (edited - frames[s:e + 1]) * ramp[:, None])
+    return frames
+
+
 def _np_quat_multiply(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     w1, x1, y1, z1 = a
     w2, x2, y2, z2 = b
@@ -121,11 +204,12 @@ def apply_ik_constraints(skeleton: Skeleton, frames: np.ndarray,
                          n_iters: int = 10,
                          optimize_orientation: bool = True,
                          device=None) -> np.ndarray:
-    """Solve each IK constraint on its frame (`ik.solve_ik` on `device`,
-    every joint but the root free) and blend the edit linearly into the
-    frames within interpolation_window // 2 of it; constraints apply in
-    order, each on the frames the previous ones left.  optimize_orientation
-    applies the orientation of constraints that carry one."""
+    """Solve each IK constraint on its frame (`ik.solve_ik`, every joint
+    but the root free) and blend the edit linearly into the frames within
+    interpolation_window // 2 of it; constraints apply in order, each on
+    the frames the previous ones left.  optimize_orientation applies the
+    orientation of constraints that carry one."""
+    device = device_mod.resolve(device, "apply_ik_constraints")
     frames = frames.copy()
     for c in constraints:
         if c.joint not in skeleton.node_names:
@@ -187,18 +271,19 @@ def apply_ik_constraints(skeleton: Skeleton, frames: np.ndarray,
 
 def post_process_motion(skeleton: Skeleton, frames: np.ndarray, steps,
                         ik_constraints: Optional[List[IKConstraint]] = None,
-                        config: Optional[dict] = None,
+                        config: Optional[dict] = None, scene=None,
+                        ik_trajectories: Optional[
+                            List[IKTrajectoryConstraint]] = None,
                         device=None) -> np.ndarray:
-    """Keyframe IK edits with the config's IK settings: max_iterations / 100
-    (clipped to 1..25) Gauss-Newton steps, the interpolation window unless
-    activate_blending is off, optimize_orientation.  Grounding
-    (activate_motion_grounding) is not ported and raises."""
-    del steps
+    """Keyframe IK edits, then trajectory IK edits (the CA "ik" mode), then
+    grounding, under the config's flags: both IK passes take max_iterations
+    / 100 (clipped to 1..25) Gauss-Newton steps and run under
+    activate_inverse_kinematics; the keyframe pass blends over
+    interpolation_window unless activate_blending is off, the trajectory
+    pass ramps over transition_window // 6; activate_motion_grounding
+    grounds the walk's steps on the scene with motion_grounding_settings."""
+    device = device_mod.resolve(device, "post_process_motion")
     config = config or {}
-    if config.get("activate_motion_grounding", False):
-        raise NotImplementedError(
-            "activate_motion_grounding: grounding.ground_motion is not "
-            "ported yet (ROADMAP item 13)")
     ik_settings = config.get("inverse_kinematics_settings", {})
     budget = int(np.clip(
         round(int(ik_settings.get("max_iterations", 1000)) / 100), 1, 25))
@@ -212,4 +297,14 @@ def post_process_motion(skeleton: Skeleton, frames: np.ndarray, steps,
                 optimize_orientation=bool(
                     ik_settings.get("optimize_orientation", True)),
                 device=device)
+    if ik_trajectories and config.get("activate_inverse_kinematics", True):
+        with record_function("request.ik_trajectory"):
+            frames = apply_ik_trajectory_constraints(
+                skeleton, frames, ik_trajectories, n_iters=budget,
+                blend_window=int(ik_settings.get("transition_window", 60))
+                // 6, device=device)
+    if config.get("activate_motion_grounding", False):
+        frames = grounding.ground_motion(
+            skeleton, frames, steps, scene,
+            settings=config.get("motion_grounding_settings"), device=device)
     return frames

@@ -512,10 +512,12 @@ def test_ik_post_process_matches_jax(graphs):
     out_j = ppj.apply_ik_constraints(skel_j, frames, ik_j,
                                      interpolation_window=30, n_iters=6)
     out_t = ppt.apply_ik_constraints(skel_t, frames, ik_t,
-                                     interpolation_window=30, n_iters=6)
+                                     interpolation_window=30, n_iters=6,
+                                     device="cpu")
     np.testing.assert_allclose(out_t, out_j, atol=5e-3)
     cfg = default_config()
     np.testing.assert_allclose(
-        ppt.post_process_motion(skel_t, frames, steps, ik_t, cfg),
+        ppt.post_process_motion(skel_t, frames, steps, ik_t, cfg,
+                                device="cpu"),
         ppj.post_process_motion(skel_j, frames, steps, ik_j, cfg),
         atol=5e-3)
