@@ -102,11 +102,27 @@ Phases, one line each (or a few):
      phase 13's kernels); both requests at one LM iteration on the GPU and
      the CPU path with the same samples up to the post-process, then the
      post-process from the GPU path's input on both, held on its stable
-     frames and by its invariants (after phase 13's); the phase's seconds.
-The checks of phases 3-8 and 13-14 run first, but their lines are printed
+     frames and by its invariants (after phase 13's); the phase's seconds;
+ 15. the streaming planner (run after phase 14): MGStatePlanner on the
+     reference-scale walk graph plus a pickRight action at its widths, one
+     session through start() with this thread popping states until the
+     worker ends (a control-point walk of 3 targets with an end direction
+     and the end targets forced, a look-at target and an upper-body
+     gesture with wrist noise; a 4-step direction walk; pickRight with an
+     engine-format RightHand constraint held over a region; a hand
+     collision boundary that hits once), once warm and twice timed: wall
+     seconds, steps, p50 step, the launches of B2, B5 and the emit kernel
+     per session (each above 0) and the shapes each gets; the session
+     fails on NaN, a root seam above 5 cm, the snapped hand more than
+     2 cm from its target, a limited twist outside its range, or the
+     reach state's events and hold frames; the shapes phases 13-14 do
+     not hold at exactly that size against their twins (the gesture's
+     resampled emit); the session at one LM iteration on the GPU and the
+     CPU path with the same draws; the phase's seconds.
+The checks of phases 3-8 and 13-15 run first, but their lines are printed
 after phase 11: a kernel's device time comes from a profiler trace, and a
 process that has taken one pays more host time per launch afterwards, so the
-traces wait until the host-timed phases (9-11, 13-14) are over.
+traces wait until the host-timed phases (9-11, 13-15) are over.
 Then a JSON line of per-kernel results (time, launches, error against the
 twin, the bound and the one-call library time where there is one; `ms` is
 the device time, `kernel_ms` the events around the wrapper), and as
@@ -1107,20 +1123,23 @@ def _quat_frames_diff(a, b):
     return worst, int((other < same).sum())
 
 
+def _host_sampler(graph, seed):
+    """The draw table: GMM draws from a host torch.Generator, the same on
+    every device."""
+    import torch
+    from morphablegraphs_tpu_torch.models import primitive as prim_mod
+    gen = torch.Generator().manual_seed(seed)
+    return lambda key, n: prim_mod.sample_latent(
+        gen, graph.nodes[key].primitive, n).numpy()
+
+
 def phase_request_reference(graph):
     """Both requests at one LM iteration on the GPU path (kernels) and on
     the CPU path (twins), drawing the same host-made samples: node keys
     and frame counts equal, step errors and frames (after the keyframe
     IK) within the bounds of phase 10."""
-    import torch
-    from morphablegraphs_tpu_torch.models import primitive as prim_mod
     from morphablegraphs_tpu_torch.synthesis.motion_generator import \
         MotionGenerator
-
-    def host_sampler(seed):
-        gen = torch.Generator().manual_seed(seed)
-        return lambda key, n: prim_mod.sample_latent(
-            gen, graph.nodes[key].primitive, n).numpy()
 
     for name, (mg_input, cfg, _) in _requests().items():
         cfg = dict(cfg, lm_iterations=1)
@@ -1128,7 +1147,7 @@ def phase_request_reference(graph):
         for dev in ("cuda", "cpu"):
             t0 = time.perf_counter()
             runs[dev] = (MotionGenerator(graph, cfg, device=dev,
-                                         sampler=host_sampler(7))
+                                         sampler=_host_sampler(graph, 7))
                          .generate_motion(mg_input),
                          time.perf_counter() - t0)
         (a, t_gpu), (b, t_cpu) = runs["cuda"], runs["cpu"]
@@ -1449,16 +1468,9 @@ def phase_options_reference(graph):
     output within POST_ATOL of the CPU's on the frames the CPU path holds
     stable (see STABLE_ATOL), and the invariants of
     `_post_process_invariants` exactly on both."""
-    import torch
-    from morphablegraphs_tpu_torch.models import primitive as prim_mod
     from morphablegraphs_tpu_torch.synthesis import grounding, postprocess
     from morphablegraphs_tpu_torch.synthesis.motion_generator import \
         MotionGenerator
-
-    def host_sampler(seed):
-        gen = torch.Generator().manual_seed(seed)
-        return lambda key, n: prim_mod.sample_latent(
-            gen, graph.nodes[key].primitive, n).numpy()
 
     def post(frames, args, kw, dev):
         with _Spy(grounding, "ground_motion") as spy:
@@ -1474,7 +1486,7 @@ def phase_options_reference(graph):
             with _Spy(postprocess, "post_process_motion",
                       stub=lambda *a, **kw: a[1]) as spy:
                 res = MotionGenerator(graph, cfg, device=dev,
-                                      sampler=host_sampler(7)
+                                      sampler=_host_sampler(graph, 7)
                                       ).generate_motion(mg_input)
             runs[dev] = (res, spy.calls[-1], time.perf_counter() - t0)
         (a, call, t_gpu), (b, _, t_cpu) = runs["cuda"], runs["cpu"]
@@ -1529,6 +1541,579 @@ def phase_options_reference(graph):
             _fail(f"request {name}: the post-process on the GPU fails its "
                   "check")
 
+
+# The streaming planner (phase 15): MGStatePlanner on the reference-scale
+# walk graph plus a pickRight action at the same widths, one session
+# through start(), the main thread popping states until the worker ends.
+# The session: a control-point walk of 3 targets with an end direction
+# (the end targets forced), a look-at target behind the walk (the head's
+# twist clamps at the limit table's 80 degrees) and an upper-body gesture
+# resampled by velocityFactor with wrist noise (a CCD edit); a 4-step
+# direction walk; pickRight with an engine-format RightHand constraint on
+# start_contact held over a region to end_contact (the IK snap); a hand
+# collision boundary that hits once (a CCD edit).  The default settings
+# run a 10-iteration LM on every constrained step (B2 and B5) and emit
+# every step through the emit kernel.
+PLANNER_SETTINGS = dict(force_walk_end_targets=True, min_end_distance=1.0,
+                        end_target_blend_range=20,
+                        enable_gesture_parameters=True,
+                        min_target_distance=40.0, max_steps_per_target=3)
+PLANNER_REPS = 2  # timed sessions, after one that warms
+PLANNER_SEED = 5  # the draw table's torch.Generator (on the host)
+PLANNER_CONTACT = ("start_contact", "end_contact")  # reach labels
+PLANNER_CONTACT_FRAMES = (65, 75)
+# The IK snap needs a hand it can move onto the target.  The synthetic
+# walk primitives' joint quaternions are far from unit length (norms
+# 0.09-8.7: their spatial eigenvectors are N(0, 0.3) on every row), which
+# scales the FK's bones: the reach's hand moves hundreds of cm between
+# two frames, and from 3 cm off the IK diverges to thousands.  So the
+# reach primitive's mean quaternions are made unit and its eigenvectors
+# scaled by PLANNER_QUAT_EIGEN_SCALE on the quaternion rows (norms within
+# a few percent of 1, as a trained model's).  The step's LM moves the
+# hand with its target, so the target is iterated toward where the
+# session's hand goes: PLANNER_PROBES sessions with the same draws, each
+# aiming at the hand's position at end_contact before the snap in the one
+# before, plus PLANNER_TARGET_OFFSET cm.  The miss is measured in the
+# frame the snap solves in (see _check_session).
+PLANNER_QUAT_EIGEN_SCALE = 0.05
+PLANNER_TARGET_OFFSET = np.array([3.0, 2.0, -3.0])
+PLANNER_PROBES = 2
+PLANNER_TARGET_MISS = 2.0  # cm: the snapped hand at end_contact
+PLANNER_TWIST_TOL = 1e-3  # rad: a clamped twist past its bound
+PLANNER_SEAM = 5.0  # cm: root jump between consecutive states
+# GPU vs CPU session at one LM iteration: node keys, frame counts, events
+# and hold frames exactly, frames within PLANNER_FRAMES_ATOL (joint
+# quaternions up to sign): in a CPU rehearsal a 1e-6 relative nudge of the
+# draws moved the session's frames by up to 9.4e-3 (the one-iteration LM
+# and 16 states aligned each onto the one before).  The seam smoothing
+# picks each joint's hemisphere by the sign of its dot with the previous
+# state's last frame,
+# and the blend of the whole window follows the first frame's pick: on
+# the synthetic model's random quaternions a cosine within rounding of 0
+# picks the other side on one path (in a CPU rehearsal a 1e-6 relative
+# nudge of the draws moved one such window by 1.9).  Joints whose cosine
+# lies within PLANNER_SEAM_COS_EPS of 0 on either path are left out of
+# their state's seam window and counted, as the emit kernel's checks
+# leave out joints within EMIT_DOT_EPS.
+PLANNER_SEAM_COS_EPS = 1e-3
+PLANNER_FRAMES_ATOL = 3e-2
+
+
+def _planner_graph():
+    """The reference-scale walk graph plus pickRight: one `reach`
+    primitive at the walk's widths with the contact labels, its
+    transitions, and the action definition's node sequence and
+    constraint slot."""
+    from morphablegraphs_tpu_torch.models import graph as graph_mod
+    from morphablegraphs_tpu_torch.models import skeleton as sk
+    from morphablegraphs_tpu_torch.utils import synthetic
+    gd = synthetic.make_reference_scale_graph_dict()
+    mm = synthetic.make_legacy_model_json(seed=100, **synthetic.REF_SCALE)
+    mm["name"] = "pickRight_reach"
+    # joint quaternions within a few percent of unit length (see
+    # PLANNER_QUAT_EIGEN_SCALE): the mean's unit, the eigenvectors' scaled
+    # down; the root translation rows keep their scale
+    eigen = np.asarray(mm["eigen_vectors_spatial"])
+    n_dim = mm["n_dim_spatial"]
+    eigen = eigen.reshape(len(eigen), -1, n_dim)
+    eigen[..., 3:] *= PLANNER_QUAT_EIGEN_SCALE
+    mm["eigen_vectors_spatial"] = eigen.reshape(len(eigen), -1).tolist()
+    mean = np.asarray(mm["mean_spatial_vector"]).reshape(-1, n_dim)
+    q = mean[:, 3:].reshape(len(mean), -1, 4)
+    mean[:, 3:] = (q / np.linalg.norm(q, axis=-1, keepdims=True)).reshape(
+        len(mean), -1)
+    mm["mean_spatial_vector"] = mean.reshape(-1).tolist()
+    mm["keyframes"].update(zip(PLANNER_CONTACT, PLANNER_CONTACT_FRAMES))
+    gd["subgraphs"]["pickRight"] = {
+        "name": "pickRight",
+        "info": {"start_states": ["reach"], "end_states": ["reach"]},
+        "nodes": {"reach": {"name": "pickRight_reach", "mm": mm}}}
+    gd["transitions"]["walk_endRightStance"] = ["pickRight_reach"]
+    gd["transitions"]["pickRight_reach"] = ["walk_beginLeftStance"]
+    gd["actionDefinitions"] = {"pickRight": {
+        "node_sequence": [["reach", "standard"]],
+        "constraint_slots": {PLANNER_CONTACT[0]: {"node": "reach",
+                                                  "joint": "RightHand"}}}}
+    graph = graph_mod.build_graph_from_dict(gd)
+    graph.skeleton, _ = sk.load_bvh(synthetic.REF_BVH)
+    return graph
+
+
+def _planner_actions(target):
+    """The session's action descs; target: the RightHand's world target."""
+    return [
+        {"action": "walk",
+         "controlPoints": [[0.0, 0, 40.0], [10.0, 0, 70.0],
+                           [20.0, 0, 100.0]],
+         "endDirection": [1.0, 0.0, 0.0],
+         "lookAtTarget": [-20.0, 160.0, -400.0],
+         "upperBodyGesture": {"name": "walk", "primitive": "rightStance",
+                              "velocityFactor": 1.5, "noiseFactor": 0.5}},
+        {"action": "walk", "direction": [0.3, 0.0, 1.0], "nSteps": 4},
+        {"action": "pickRight", "frameConstraints": [{
+            "keyframe": PLANNER_CONTACT[0],
+            "position": {"x": -float(target[0]), "y": float(target[1]),
+                         "z": float(target[2])},
+            "constrainPositionInRegion": True,
+            "endKeyframe": PLANNER_CONTACT[1], "hold": True,
+            "keyframeEvents": [{"event": "attach",
+                                "parameters": {"joint": "RightHand"}}]}]}]
+
+
+class _HandBoundary:
+    """A hand collision boundary that reports one hit (the first check,
+    at a third of the clip, pushed along -z) and none after."""
+
+    joint_name = "RightHand"
+
+    def __init__(self):
+        self.hits = 0
+
+    def check_trajectory(self, points, dt):
+        if self.hits:
+            return None, None, None
+        self.hits += 1
+        i = len(points) // 3
+        return i, np.asarray(points[i]), np.array([0.0, 0.0, 1.0])
+
+
+def _planner(graph, device, lm_iterations=10):
+    from morphablegraphs_tpu_torch.synthesis import state_planner as sp
+    from morphablegraphs_tpu_torch.utils.config import default_config
+    cfg = default_config()
+    cfg["lm_iterations"] = lm_iterations
+    return sp.MGStatePlanner(
+        graph, sp.MGStatePlanningSettings(**PLANNER_SETTINGS), config=cfg,
+        device=device, sampler=_host_sampler(graph, PLANNER_SEED),
+        hand_collision_boundary=_HandBoundary())
+
+
+def _hand_at(skel, frames, pose_buffer, frame_idx):
+    """The RightHand's world position at frames[frame_idx] of a step's
+    primitive-local frames under the step's aligning transform onto the
+    pose buffer (the frame the IK snap solves in)."""
+    import torch
+    from morphablegraphs_tpu_torch.models.skeleton import fk_positions
+    from morphablegraphs_tpu_torch.ops import align, quat
+    f = torch.as_tensor(np.asarray(frames, np.float32))
+    q_y, delta = align.node_aligning_2d_transform(
+        torch.as_tensor(np.asarray(pose_buffer[-1], np.float32)), f[0])
+    hand = fk_positions(skel, f[frame_idx])[skel.index_of("RightHand")]
+    return (quat.rotate_vec(q_y, hand) + delta).numpy()
+
+
+def _instrument(planner):
+    """Record on the planner: `steps` (each generate_step's seconds),
+    `looked_at` (the ids of the entries whose step had a look-at target),
+    `snaps` ((frames, pose buffer, snapped frames) of each IK snap) and
+    `ties` (per built state's id, the joints whose seam hemisphere pick
+    is within PLANNER_SEAM_COS_EPS of a tie) and `end_dir_corrections`
+    (the end-target heading corrections force_walk_end_targets made)."""
+    import torch
+    from morphablegraphs_tpu_torch.ops import align
+    generate_step = planner.generate_step
+    snap = planner._snap_keyframe_constraints
+    build_state = planner.state_queue.build_state
+    planner.steps, planner.looked_at, planner.snaps, planner.ties = \
+        [], set(), [], {}
+
+    def timed_step(*a, **kw):
+        t0 = time.perf_counter()
+        out = generate_step(*a, **kw)
+        planner.steps.append(time.perf_counter() - t0)
+        if kw.get("body_orientation_targets") is not None:
+            planner.looked_at.add(id(out))
+        return out
+
+    def recorded_snap(frames, pose_buffer, resolved_kf):
+        out = snap(frames, pose_buffer, resolved_kf)
+        planner.snaps.append((frames, pose_buffer, out))
+        return out
+
+    def recorded_build(frames, pose_buffer, ignore_rotation=False):
+        state = build_state(frames, pose_buffer, ignore_rotation)
+        if pose_buffer:
+            prev = torch.as_tensor(np.asarray(pose_buffer[-1], np.float32))
+            first = torch.as_tensor(np.asarray(frames[:1], np.float32))
+            q_y, delta = align.node_aligning_2d_transform(prev, first[0])
+            a = align.transform_frames(first, q_y, delta)[0, 3:].reshape(
+                -1, 4)
+            b = prev[3:].reshape(-1, 4)
+            cos = (a * b).sum(-1) / (torch.linalg.vector_norm(a, dim=-1)
+                                     * torch.linalg.vector_norm(b, dim=-1))
+            planner.ties[id(state)] = (cos.abs()
+                                       < PLANNER_SEAM_COS_EPS).numpy()
+        return state
+    end_dir = planner.state_queue.correct_last_state_end_dir
+
+    def counted_end_dir(*a, **kw):
+        planner.end_dir_corrections += 1
+        return end_dir(*a, **kw)
+    planner.end_dir_corrections = 0
+    planner.generate_step = timed_step
+    planner._snap_keyframe_constraints = recorded_snap
+    planner.state_queue.build_state = recorded_build
+    planner.state_queue.correct_last_state_end_dir = counted_end_dir
+    return planner
+
+
+def _stream(planner, actions):
+    """Run the actions through start(), popping states on this thread
+    (the newest one left queued while the worker runs) until the worker
+    ends -> (entries, wall seconds); the planner holds `_instrument`'s
+    records."""
+    _instrument(planner)
+    entries = []
+    t0 = time.perf_counter()
+    worker = planner.start(actions)
+    while worker.is_alive() or len(planner.state_queue):
+        e = planner.state_queue.pop(keep=1 if worker.is_alive() else 0)
+        if e is None:
+            time.sleep(0.002)
+        else:
+            entries.append(e)
+    planner.stop()
+    wall = time.perf_counter() - t0
+    if worker.is_alive():
+        _fail("the planner's worker did not end")
+    return entries, wall
+
+
+def _probe_target(graph, device, lm_iterations):
+    """The RightHand's target: PLANNER_PROBES sessions with the draw
+    table, each aiming at where the one before put the hand at
+    end_contact before its snap, plus PLANNER_TARGET_OFFSET (the step's
+    LM moves the hand with its target, so the target is iterated toward
+    a place the session's hand goes).  -> the target, the probes' hand
+    misses before their snaps."""
+    target, misses = np.array([0.0, 100.0, 0.0]), []
+    for _ in range(PLANNER_PROBES):
+        p = _instrument(_planner(graph, device, lm_iterations))
+        p.generate_motion_states_from_action_sequence(
+            _planner_actions(target))
+        if len(p.snaps) != 1:
+            _fail(f"a probe session snapped {len(p.snaps)} steps, not 1")
+        frames, buf, _ = p.snaps[0]
+        hand = _hand_at(graph.skeleton, frames, buf,
+                        PLANNER_CONTACT_FRAMES[1])
+        misses.append(round(float(np.linalg.norm(hand - target)), 2))
+        target = hand + PLANNER_TARGET_OFFSET
+    return target, misses
+
+
+def _twists(skel, frames, table):
+    """Twist angles [T, J] of frames about the limit table's axes."""
+    axes = table[0]
+    q = frames[:, 3:].reshape(len(frames), -1, 4).astype(np.float64)
+    q = np.where(q[..., :1] < 0, -q, q)
+    return 2 * np.arctan2((q[..., 1:] * axes).sum(-1), q[..., 0])
+
+
+def _check_session(graph, planner, entries, target, label):
+    """The session's checks (each fails the script): finite frames, root
+    seams, the snapped hand, the clamped twists, the reach state's events
+    and hold frames; planner holds `_instrument`'s records.  -> a summary
+    line."""
+    from morphablegraphs_tpu_torch.models import skeleton_models
+    skel = graph.skeleton
+    keys = [e.node_key for e in entries]
+    if ("pickRight", "reach") not in keys or len(entries) < 8:
+        _fail(f"planner {label}: states {keys}")
+    if not all(np.all(np.isfinite(e.state.frames)) for e in entries):
+        _fail(f"planner {label}: a state holds NaN or inf")
+    seams = [float(np.linalg.norm(b.state.frames[0][:3]
+                                  - a.state.frames[-1][:3]))
+             for a, b in zip(entries, entries[1:])]
+    if max(seams) > PLANNER_SEAM:
+        _fail(f"planner {label}: a root seam jumps {max(seams):.3f} cm "
+              f"(> {PLANNER_SEAM})")
+    reach = entries[keys.index(("pickRight", "reach"))]
+    kf, end = PLANNER_CONTACT_FRAMES
+    if list(reach.events) != [kf] or reach.hold_frames != tuple(
+            range(kf, end + 1)):
+        _fail(f"planner {label}: the reach state's events {reach.events} "
+              f"and hold frames {reach.hold_frames}")
+    # the snapped hand in the frame the snap solves in: the step's aligning
+    # transform applied to its primitive-local frames (the queue applies
+    # it to the root, which agrees with it for unit quaternions only)
+    if len(planner.snaps) != 1:
+        _fail(f"planner {label}: {len(planner.snaps)} IK snaps, not 1")
+    frames, buf, snapped = planner.snaps[0]
+    miss = float(np.linalg.norm(_hand_at(skel, snapped, buf, end)
+                                - target))
+    pre = float(np.linalg.norm(_hand_at(skel, frames, buf, end) - target))
+    if miss > PLANNER_TARGET_MISS:
+        _fail(f"planner {label}: the snapped RightHand misses its target "
+              f"by {miss:.3f} cm (> {PLANNER_TARGET_MISS}; {pre:.3f} before "
+              "the snap)")
+    # the look-at window (the last look_at_window frames) of the states
+    # with a look-at target: every limited joint's twist inside its range
+    table = skeleton_models.build_limit_table(skel)
+    _, mins, maxs, mask = table
+    on = mask > 0
+    window = planner.settings.look_at_window
+    worst, at_bound = 0.0, 0
+    looked = [e for e in entries if id(e) in planner.looked_at]
+    if not looked:
+        _fail(f"planner {label}: no state carries the look-at edit")
+    for e in looked:
+        t = _twists(skel, e.state.frames[-window:], table)[:, on]
+        worst = max(worst, float(np.max(np.maximum(mins[on] - t,
+                                                   t - maxs[on]))))
+        at_bound += int((np.minimum(np.abs(t - mins[on]),
+                                    np.abs(t - maxs[on])) < 1e-4).sum())
+    if worst > PLANNER_TWIST_TOL or at_bound == 0:
+        _fail(f"planner {label}: a clamped twist lies {worst:.2e} rad "
+              f"outside its range, {at_bound} twists at a bound")
+    return (f"{len(entries)} states, "
+            f"{sum(len(e.state.frames) for e in entries)} frames, largest "
+            f"root seam {max(seams):.2e} cm, end targets forced "
+            f"{planner.end_dir_corrections} time(s), RightHand miss "
+            f"{miss:.4f} cm "
+            f"after the snap ({pre:.2f} before), limited twists past a "
+            f"bound by at most {worst:.1e} rad ({at_bound} at a bound in "
+            f"the look-at windows of {len(looked)} states)")
+
+
+def phase_planner(graph, device, smi: str):
+    """Phase 15: the target's probes, a warm session (which also records
+    the shapes each kernel gets), then PLANNER_REPS timed sessions, each
+    through start() with the main thread popping states: states, frames,
+    steps, wall seconds, p50 step, the launches of B2, B5 and the emit
+    kernel per session (each above 0) and the session's checks.  ->
+    (launches of the last timed session, {kernel: {shape: launches}},
+    phase seconds)."""
+    import torch
+    from morphablegraphs_tpu_torch.ops import kernels
+    t_phase = time.perf_counter()
+    target, misses = _probe_target(graph, device, 10)
+    shapes = {k: {} for k in REQUEST_KERNELS}
+    hooks = {"chol_solve": lambda a, g: tuple(a.shape),
+             "gmm_nll": lambda x, w, *r: (x.shape[0], w.shape[0]),
+             "emit_frames": lambda *a: (a[0].shape[0], a[5].shape[-1],
+                                        bool(a[8]), int(a[9]))}
+
+    def recorder(name):
+        orig, key_of = getattr(kernels, name), hooks[name]
+        seen = shapes[_KERNEL_OF[name]]
+
+        def wrapper(*a, **kw):
+            key = key_of(*a)
+            seen[key] = seen.get(key, 0) + 1
+            return orig(*a, **kw)
+        return orig, wrapper
+    runs = []
+    for rep in range(PLANNER_REPS + 1):
+        planner = _planner(graph, device)
+        saved = {}
+        if rep == 0:
+            for name in hooks:
+                saved[name], wrapper = recorder(name)
+                setattr(kernels, name, wrapper)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        try:
+            entries, wall = _stream(planner, _planner_actions(target))
+        finally:
+            for name, orig in saved.items():
+                setattr(kernels, name, orig)
+        counts = kernels.launch_counts()
+        if any(counts[k] <= 0 for k in REQUEST_KERNELS):
+            _fail(f"the planner session did not launch B2, B5 and the emit "
+                  f"kernel: {counts}")
+        summary = _check_session(graph, planner, entries, target,
+                                 "warm" if rep == 0 else f"timed {rep}")
+        runs.append((wall, planner.steps, counts, summary))
+    steps = [s for _, st, _, _ in runs[1:] for s in st]
+    launches = [tuple(c[k] for k in REQUEST_KERNELS) for _, _, c, _ in runs]
+    others = [sum(v for k, v in c.items() if k not in REQUEST_KERNELS)
+              for _, _, c, _ in runs]
+    print(f"planner: MGStatePlanner.start() on {device} ({smi}), one warm "
+          f"and {PLANNER_REPS} timed sessions: wall s "
+          f"{[round(w, 3) for w, _, _, _ in runs]} (warm first), steps per "
+          f"session {[len(st) for _, st, _, _ in runs]}, p50 step "
+          f"{float(np.median(steps)):.4f} s, launches per session of "
+          f"B2/B5/emit {launches}, of the other port kernels {others}; "
+          f"{runs[-1][3]}; RightHand target {np.round(target, 2).tolist()} "
+          f"(the probes' hands {misses} cm from their targets before the "
+          "snap)", flush=True)
+    print("planner: kernel shapes in the warm session (launches of each) "
+          + str({k: {str(s): n for s, n in v.items()}
+                 for k, v in shapes.items()}), flush=True)
+    return runs[-1][2], shapes, time.perf_counter() - t_phase
+
+
+_KERNEL_OF = {"chol_solve": "chol_solve", "gmm_nll": "gmm_scores",
+              "emit_frames": "emit_frames"}
+
+
+def phase_planner_kernels(graph, device, shapes):
+    """The planner's kernel shapes that phases 13-14 do not hold at
+    exactly that size, against their twins (B5's and the emit kernel's
+    tolerances): B2 other than [1, 28, 28], B5 on other row counts of one
+    mixture, the emit kernel at C = 1 at other frame counts or options.
+    -> {kernel name: [results]}."""
+    import torch
+    from morphablegraphs_tpu_torch.models import primitive as prim_mod
+    from morphablegraphs_tpu_torch.ops import kernels
+    from morphablegraphs_tpu_torch.synthesis.motion_generator import \
+        _pad_frames
+    f = graph.nodes[("walk", "leftStance")].primitive.n_canonical_frames
+    held = {"chol_solve": {(1, 28, 28)},
+            "gmm_scores": {(1, 1), (50, 1), (3, 3)},
+            "emit_frames": {(1, _pad_frames(f), True, 20),
+                            (1, _pad_frames(2 * f), False, 20),
+                            (1, _pad_frames(f), False, 0)}}
+    gen = torch.Generator(device=device).manual_seed(37)
+    prim = graph.nodes[("pickRight", "reach")].primitive.to(device)
+    gm = prim.gmm
+    out = {k: [] for k in held}
+    for shape in sorted(s for s in shapes["chol_solve"]
+                        if s not in held["chol_solve"]):
+        c, n, _ = shape
+        j = torch.randn((c, 40, n), generator=gen, device=device)
+        a = torch.bmm(j.transpose(1, 2), j) + 0.1 * torch.eye(
+            n, device=device)
+        g = torch.randn((c, n), generator=gen, device=device)
+        x_k, x_t = kernels.chol_solve(a, g), kernels.chol_solve_unrolled(a, g)
+        err = (x_k - x_t).abs()
+        if bool((err > B2_ATOL + B2_RTOL * x_t.abs()).any()):
+            _fail(f"B2 at the planner's {list(shape)} disagrees with its twin")
+        bound_ms, by = _bound(_nbytes(a, g, x_k), c * (n ** 3 / 3 + 2 * n * n))
+        r = dict(shape=str(list(shape)), max_abs_err=float(err.max()),
+                 plain_ms=_time_ms(lambda: kernels.chol_solve_unrolled(a, g),
+                                   5),
+                 bound_ms=bound_ms, bound_by=by,
+                 library_ms=_time_ms(lambda: torch.linalg.solve_ex(a, g), 50))
+        out["chol_solve"].append(r)
+        _kernel_line(f"planner B2 chol_solve {r['shape']}: max_abs_err="
+                     f"{r['max_abs_err']:.3e}",
+                     lambda a=a, g=g: kernels.chol_solve(a, g), 50, bound_ms,
+                     f"(bound_ms={bound_ms:.6f}, {by})", r)
+    for rows, n_mix in sorted(s for s in shapes["gmm_scores"]
+                              if s not in held["gmm_scores"]):
+        args = (1.5 * prim_mod.sample_latent(gen, prim, rows),
+                gm.weights[None].expand(n_mix, -1).contiguous(),
+                gm.means[None].expand(n_mix, -1, -1).contiguous(),
+                gm.prec_chol[None].expand(n_mix, -1, -1, -1).contiguous(),
+                torch.arange(rows, device=device) % n_mix)
+        nll_k, g_k = kernels.gmm_nll_and_grad(*args)
+        nll_t, g_t = kernels.gmm_nll_and_grad_ref(*args)
+        worst = max(float((nll_k - nll_t).abs().max()),
+                    float((g_k - g_t).abs().max()))
+        if bool(((nll_k - nll_t).abs() > B5_ATOL + B5_RTOL
+                 * nll_t.abs()).any()) or bool(
+                ((g_k - g_t).abs() > B5_ATOL + B5_RTOL * g_t.abs()).any()):
+            _fail(f"B5 on the planner's {rows} rows disagrees with its twin")
+        k, d = gm.means.shape
+        bound_ms, by = _bound(_nbytes(*args, nll_k, g_k),
+                              rows * k * (4 * d * d + 3 * d))
+        r = dict(shape=f"[{rows}, K={k}, D={d}] over {n_mix} mixture(s)",
+                 max_abs_err=worst,
+                 plain_ms=_time_ms(lambda args=args:
+                                   kernels.gmm_nll_and_grad_ref(*args), 5),
+                 bound_ms=bound_ms, bound_by=by, library_ms=None)
+        out["gmm_scores"].append(r)
+        _kernel_line(f"planner B5 gmm_nll_and_grad {r['shape']}: "
+                     f"max_abs_err={worst:.3e}",
+                     lambda args=args: kernels.gmm_nll_and_grad(*args), 50,
+                     bound_ms, f"(bound_ms={bound_ms:.6f}, {by})", r)
+    s = prim_mod.sample_latent(gen, prim, 1)[0]
+    n_can = prim.n_canonical_frames
+    for c, t_max, has_prev, win in sorted(
+            s_ for s_ in shapes["emit_frames"]
+            if s_ not in held["emit_frames"]):
+        t_fn = torch.linspace(0.0, n_can - 1.0, t_max, device=device)
+        prev = (prim_mod.evaluate_at(prim, s, t_fn[-1:].clone())
+                if has_prev else None)
+        args = (s[None, : prim.n_spatial].expand(c, -1), prim.eigen_s[None],
+                prim.mean_s[None], prim.knots_s[None],
+                torch.zeros(c, dtype=torch.long, device=device),
+                t_fn[None].expand(c, -1),
+                torch.full((c,), t_max, dtype=torch.int32, device=device),
+                None if prev is None else prev.expand(c, -1), has_prev, win)
+        f_k, l_k = kernels.emit_frames(*args)
+        f_t, l_t = kernels.emit_frames_ref(*args)
+        skip = _near_equator(args, f_t)
+        keep = torch.cat([torch.ones((c, 3), dtype=torch.bool,
+                                     device=device),
+                          (~skip).repeat_interleave(4, dim=1)], dim=1)
+        err = (f_k - f_t).abs() * keep[:, None]
+        if not bool(torch.isfinite(f_k).all()) or bool(
+                (err > B6_ATOL + B6_RTOL * f_t.abs()).any()):
+            _fail(f"emit_frames at the planner's [{c}, {t_max}] "
+                  f"has_prev={has_prev} disagrees with its twin")
+        nd, kk = f_k.shape[-1], prim.n_spatial
+        bound_ms, by = _bound(
+            _nbytes(*(x for x in args[:8] if x is not None), f_k, l_k),
+            c * (2 * prim.n_basis * nd * kk
+                 + (8 + 10 * has_prev) * t_max * nd))
+        r = dict(shape=f"[{c}, T={t_max}, n_basis={prim.n_basis}, "
+                 f"n_dim={nd}, K={kk}] has_prev={has_prev} window={win}",
+                 max_abs_err=float(err.max()),
+                 plain_ms=_time_ms(lambda args=args:
+                                   kernels.emit_frames_ref(*args), 5),
+                 bound_ms=bound_ms, bound_by=by, library_ms=None)
+        out["emit_frames"].append(r)
+        _kernel_line(f"planner B6 emit_frames {r['shape']}: max_abs_err="
+                     f"{r['max_abs_err']:.3e} (tol {B6_ATOL}+{B6_RTOL}*|x|)",
+                     lambda args=args: kernels.emit_frames(*args), 50,
+                     bound_ms, f"(bound_ms={bound_ms:.6f}, {by}) twin_ms="
+                     f"{r['plain_ms']:.4f}", r)
+    torch.cuda.synchronize()
+    print(f"planner: kernels held against their twins at the planner's new "
+          f"shapes: { {k: [r['shape'] for r in v] for k, v in out.items()} }"
+          f"; the others phases 13-14 hold at exactly that size", flush=True)
+    if not out["emit_frames"]:
+        _fail("the planner's gesture resampling gave the emit kernel no "
+              "frame count of its own")
+    return out
+
+
+def phase_planner_reference(graph):
+    """The session at one LM iteration on the GPU path (kernels) and on the
+    CPU path (twins), each through start(), with the same draw table and a
+    target probed at one iteration: node keys, frame counts, events and
+    hold frames equal, frames within PLANNER_FRAMES_ATOL (joint
+    quaternions up to sign; seam windows of near-tied joints left out, see
+    PLANNER_SEAM_COS_EPS).  -> the phase's seconds."""
+    t0 = time.perf_counter()
+    target, _ = _probe_target(graph, "cuda", 1)
+    runs, times = {}, {}
+    for dev in ("cuda", "cpu"):
+        t1 = time.perf_counter()
+        p = _planner(graph, dev, lm_iterations=1)
+        entries, _ = _stream(p, _planner_actions(target))
+        runs[dev] = (p, entries)
+        times[dev] = time.perf_counter() - t1
+    (p_a, a), (p_b, b) = runs["cuda"], runs["cpu"]
+    same = ([(e.node_key, len(e.state.frames), e.events, e.hold_frames)
+             for e in a] == [(e.node_key, len(e.state.frames), e.events,
+                              e.hold_frames) for e in b])
+    worst, flips, left_out = (float("inf") if not same else 0.0), 0, 0
+    window = p_a.settings.blend_window
+    for x, y in zip(a, b) if same else ():
+        fx, fy = x.state.frames.copy(), y.state.frames.copy()
+        ties = np.zeros((fx.shape[1] - 3) // 4, bool)
+        for p, e in ((p_a, x), (p_b, y)):
+            ties |= p.ties.get(id(e.state), ties)
+        for j in np.flatnonzero(ties):
+            fx[: window + 1, 3 + 4 * j: 7 + 4 * j] = 0.0
+            fy[: window + 1, 3 + 4 * j: 7 + 4 * j] = 0.0
+        left_out += int(ties.sum())
+        d, f = _quat_frames_diff(fx, fy)
+        worst, flips = max(worst, d), flips + f
+    print(f"planner reference (1 LM iteration): GPU {times['cuda']:.2f} s "
+          f"vs CPU {times['cpu']:.2f} s, {len(a)} states, node keys, frame "
+          f"counts, events and hold frames equal={same}, frames max abs "
+          f"diff {worst:.3e} (tol {PLANNER_FRAMES_ATOL}; {flips} joint "
+          f"quaternions with the other sign, {left_out} near-tied seam "
+          "windows left out)", flush=True)
+    summary = _check_session(graph, p_a, a, target, "reference")
+    print(f"planner reference: {summary}", flush=True)
+    if not same or worst > PLANNER_FRAMES_ATOL:
+        _fail("the planner's GPU session disagrees with its CPU session")
+    return time.perf_counter() - t0
 
 def _traj_request(end_x, end_z):
     return {
@@ -2181,6 +2766,16 @@ def main():
     t0 = time.perf_counter()
     phase_options_reference(graph)
     t14.append(time.perf_counter() - t0)
+    t15 = time.perf_counter()
+    planner_graph = _planner_graph()
+    planner_counts, planner_shapes, t_sessions = phase_planner(
+        planner_graph, device, smi)
+    res_planner = phase_planner_kernels(planner_graph, device,
+                                        planner_shapes)
+    t_reference = phase_planner_reference(planner_graph)
+    print(f"phase 15 seconds: {time.perf_counter() - t15:.1f} (sessions "
+          f"{t_sessions:.1f}, GPU vs CPU reference {t_reference:.1f})",
+          flush=True)
     phase_random_reference(stacked)
     crowds = {name: phase_crowd(name, stacked, skel, device, smi)
               for name in CROWDS}
@@ -2243,7 +2838,13 @@ def main():
                          **({"launches_in_global_passes": b5_global}
                             if name == "gmm_scores" else {}),
                          "shapes": request[name]}}
-            if name in request else {})}
+            if name in request else {}),
+         **({"planner": {
+             "launches": planner_counts[name],
+             "shapes": {str(list(k)): n
+                        for k, n in planner_shapes[name].items()},
+             "held": res_planner[name]}}
+            if name in planner_shapes else {})}
         for name, source, line, counts in table]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -84,6 +84,9 @@ class MotionStateGraph:
         self.node_groups: Dict[str, NodeGroup] = {}
         self.skeleton: Optional[Skeleton] = None
         self.start_node: Optional[Tuple[str, str]] = None
+        # action name -> {"node_sequence", "cycle_*", "constraint_slots",
+        # ...}: the streaming planner's non-walk actions
+        self.action_definitions: dict = {}
         # a HandPoseGenerator when the graph dict carries hand_pose_info
         self.hand_pose_generator = None
 
@@ -224,6 +227,8 @@ def build_graph_from_dict(graph_dict: dict,
                     graph.add_transition(from_key, to_key)
 
     graph.update_motion_stats(torch.Generator().manual_seed(stats_seed))
+    if "actionDefinitions" in graph_dict:
+        graph.action_definitions = graph_dict["actionDefinitions"]
     if "startNode" in graph_dict:
         graph.start_node = tuple(graph_dict["startNode"])
     if "hand_pose_info" in graph_dict:

@@ -1,6 +1,10 @@
 """Inverse kinematics over a batch of frames (port of
-morphablegraphs_tpu.ops.ik, `solve_ik`): damped Gauss-Newton over
-per-joint rotation deltas in the exponential map.
+morphablegraphs_tpu.ops.ik): damped Gauss-Newton over per-joint rotation
+deltas in the exponential map (`solve_ik`), cyclic coordinate descent
+along a chain (`run_ccd`), a single-joint look-at edit (`look_at`) and
+the swing-twist joint-limit clamp (`apply_joint_limits`).  The JAX
+package edits one frame and vmaps the edit over frame ranges; every
+function here takes the frames [F, D] at once.
 
 The JAX package solves one frame, takes its exact jacobian with
 `jax.jacfwd` and vmaps the solve over frame ranges (grounding, the
@@ -213,3 +217,119 @@ def solve_ik(skel: Skeleton, frame: torch.Tensor,
         skel, frame[None], target_nodes[None], target_positions[None],
         constraint_mask[None], joint_mask, n_iters, damping, prior_weight,
         None if target_offsets is None else target_offsets[None])[0]
+
+
+def _rotate_joint_toward(skel: Skeleton, frames: torch.Tensor,
+                         ori: torch.Tensor, joint_idx: int, node_idx: int,
+                         v_from: torch.Tensor,
+                         v_to: torch.Tensor) -> torch.Tensor:
+    """Pre-multiply animated joint `joint_idx`'s local quaternion of each
+    frame [F, D] with the world rotation aligning v_from [F, 3] onto v_to
+    [F, 3], taken into the joint's parent frame: q_local' = q_p^-1 q_world
+    q_p q_local (ori [F, N, 4]: the frames' global orientations).  The
+    shared core of CCD and look-at."""
+    v1 = v_from / torch.clamp(torch.linalg.vector_norm(
+        v_from, dim=-1, keepdim=True), min=1e-10)
+    v2 = v_to / torch.clamp(torch.linalg.vector_norm(
+        v_to, dim=-1, keepdim=True), min=1e-10)
+    axis = quat._cross(v1, v2)
+    s = torch.linalg.vector_norm(axis, dim=-1, keepdim=True)
+    # + 0.0 turns a -0.0 sum into +0.0: a chain's first joint is the
+    # effector itself (v_from = 0), where atan2(0, -0.0) = pi would turn
+    # its quaternion into its negative (the same rotation; the JAX
+    # package's dot gives either sign of zero there)
+    c = torch.sum(v1 * v2, dim=-1, keepdim=True) + 0.0
+    half = torch.atan2(s, c) * 0.5
+    axis = axis / torch.clamp(s, min=1e-10)
+    q_world = torch.cat([torch.cos(half), torch.sin(half) * axis], dim=-1)
+    parent = skel.parents[node_idx]
+    if parent >= 0:
+        p_ori = ori[:, parent]
+    else:
+        p_ori = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=frames.dtype,
+                             device=frames.device).expand_as(q_world)
+    q_rel = quat.multiply(quat.conjugate(p_ori),
+                          quat.multiply(q_world, p_ori))
+    sl = 3 + 4 * joint_idx
+    q_new = quat.normalize(quat.multiply(q_rel, frames[:, sl: sl + 4]))
+    return torch.cat([frames[:, :sl], q_new, frames[:, sl + 4:]], dim=-1)
+
+
+def _frames_and_targets(frames: torch.Tensor, target: torch.Tensor):
+    """(frames [F, D], target [F, 3], whether one frame [D] came in)."""
+    single = frames.dim() == 1
+    frames = frames[None] if single else frames
+    target = target.to(frames.dtype)
+    if target.dim() == 1:
+        target = target.expand(frames.shape[0], 3)
+    return frames, target, single
+
+
+def run_ccd(skel: Skeleton, chain: tuple, effector_node: int,
+            frames: torch.Tensor, target: torch.Tensor,
+            n_iters: int = 5) -> torch.Tensor:
+    """Cyclic coordinate descent (anim_utils run_ccd semantics): `chain`
+    holds animated-joint indices child -> root; each of n_iters passes
+    turns every chain joint so the effector node points at the target.
+    frames [F, D] (or one frame [D]) with a target each [F, 3] (or one
+    [3] for all); one FK of the frames per chain joint and pass."""
+    f, t, single = _frames_and_targets(frames, target)
+    for _ in range(n_iters):
+        for joint_idx in chain:
+            pos, ori = fk_global(skel, f)
+            node_idx = skel.index_of(skel.animated_joints[joint_idx])
+            pivot = pos[:, node_idx]
+            f = _rotate_joint_toward(skel, f, ori, joint_idx, node_idx,
+                                     pos[:, effector_node] - pivot,
+                                     t - pivot)
+    return f[0] if single else f
+
+
+def look_at(skel: Skeleton, head_joint_idx: int, frames: torch.Tensor,
+            target: torch.Tensor, local_dir=(0.0, 0.0, 1.0)) -> torch.Tensor:
+    """Turn animated joint head_joint_idx of each frame [F, D] (or [D]) so
+    its local `local_dir` points at the target [3] or [F, 3] (anim_utils
+    edit_motion_to_look_at_target's core edit)."""
+    f, t, single = _frames_and_targets(frames, target)
+    pos, ori = fk_global(skel, f)
+    node_idx = skel.index_of(skel.animated_joints[head_joint_idx])
+    cur_dir = quat.rotate_vec(ori[:, node_idx], torch.tensor(
+        local_dir, dtype=f.dtype, device=f.device).expand(f.shape[0], 3))
+    f = _rotate_joint_toward(skel, f, ori, head_joint_idx, node_idx,
+                             cur_dir, t - pos[:, node_idx])
+    return f[0] if single else f
+
+
+def apply_joint_limits(frames: torch.Tensor, axes: torch.Tensor,
+                       mins: torch.Tensor, maxs: torch.Tensor,
+                       mask: torch.Tensor) -> torch.Tensor:
+    """Clamp each constrained joint's twist about its limit axis, every
+    frame and joint in one closed-form swing-twist pass (the reference's
+    apply_joint_constraints after its look-at and spine edits).
+
+    frames [..., 3 + 4J]; axes [J, 3] unit limit axes in each joint's
+    local frame; mins, maxs [J] twist bounds in radians; mask [J] 1 where
+    the joint is constrained.  With q canonicalized to w >= 0,
+    q = swing x twist, twist = [cos(t/2), sin(t/2) a],
+    t = 2 atan2(<q_xyz, a>, q_w); the swing is kept and t is clipped.  A
+    joint that is unmasked or whose twist is inside its range keeps its
+    input values bit for bit."""
+    lead = frames.shape[:-1]
+    j = axes.shape[0]
+    quats = frames[..., 3:].reshape(lead + (j, 4))
+    q = torch.where(quats[..., :1] < 0, -quats, quats)
+    p = torch.sum(q[..., 1:] * axes, dim=-1)
+    theta = 2.0 * torch.atan2(p, q[..., 0])
+
+    def twist_of(t):
+        half = t * 0.5
+        return torch.cat([torch.cos(half)[..., None],
+                          torch.sin(half)[..., None] * axes], dim=-1)
+
+    swing = quat.multiply(q, quat.conjugate(twist_of(theta)))
+    theta_c = torch.minimum(torch.maximum(theta, mins), maxs)
+    clamped = quat.multiply(swing, twist_of(theta_c))
+    active = (mask > 0) & (theta_c != theta)
+    out = torch.where(active[..., None], clamped, quats)
+    return torch.cat([frames[..., :3], out.reshape(lead + (4 * j,))],
+                     dim=-1)

@@ -14,6 +14,12 @@ def normalize(q: torch.Tensor) -> torch.Tensor:
     return q / torch.clamp(n, min=_EPS)
 
 
+def conjugate(q: torch.Tensor) -> torch.Tensor:
+    """[w, -x, -y, -z]: the inverse rotation of a unit quaternion."""
+    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype,
+                            device=q.device)
+
+
 def multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Hamilton product a*b (w-first)."""
     aw, ax, ay, az = a.unbind(-1)

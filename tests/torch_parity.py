@@ -304,6 +304,85 @@ def jax_key_sampler(graph_j, seed: int):
     return sampler
 
 
+
+def rotations_diff(a, b) -> float:
+    """The largest difference of frames a, b [..., 3 + 4J], each joint
+    quaternion compared up to its sign (q and -q are one rotation)."""
+    q_a = a[..., 3:].reshape(a.shape[:-1] + (-1, 4))
+    q_b = b[..., 3:].reshape(b.shape[:-1] + (-1, 4))
+    diff = np.minimum(np.abs(q_a - q_b).max(-1), np.abs(q_a + q_b).max(-1))
+    return max(float(np.abs(a[..., :3] - b[..., :3]).max()),
+               float(diff.max()))
+
+
+# the toy requests of the request-path tests
+WALK_INPUT = {
+    "startPose": {"position": [0, 0, 0], "orientation": [0, 0, 0]},
+    "elementaryActions": [{
+        "action": "walk",
+        "constraints": [{"joint": "Hips", "trajectoryConstraints": [
+            {"position": [0.0, None, 0.0]}, {"position": [5.0, None, 40.0]},
+            {"position": [15.0, None, 80.0]},
+            {"position": [20.0, None, 120.0]}]}],
+    }],
+}
+
+KEYFRAME_INPUT = {
+    "startPose": {"position": [0, 0, 0], "orientation": [0, 0, 0]},
+    "elementaryActions": [{
+        "action": "walk",
+        "constraints": [{"joint": "Hips", "keyframeConstraints": [{
+            "position": [10.0, None, 35.0],
+            "semanticAnnotation": {"end": True}}]}],
+    }],
+}
+
+
+def request_both(graphs, mg_input, cfg, seed):
+    """(JAX result, port result, the port's kernel launches) of one
+    request, the port drawing the JAX generator's samples."""
+    from morphablegraphs_tpu.synthesis.motion_generator import \
+        MotionGenerator as MotionGeneratorJ
+    from morphablegraphs_tpu_torch.ops import kernels
+    from morphablegraphs_tpu_torch.synthesis.motion_generator import \
+        MotionGenerator
+    g_j, g_t = graphs
+    res_j = MotionGeneratorJ(g_j, cfg, seed=seed).generate_motion(mg_input)
+    kernels.reset_launch_counts()
+    res_t = MotionGenerator(g_t, cfg, seed=seed, device="cpu",
+                            sampler=jax_key_sampler(g_j, seed)
+                            ).generate_motion(mg_input)
+    return res_j, res_t, kernels.launch_counts()
+
+
+def assert_request_matches(res_j, res_t, frames=True):
+    """The request tests' tolerances (tests/test_torch_motion_generator.py's
+    docstring): node keys, counts and frame ranges exactly."""
+    assert [s.node_key for s in res_t.steps] == \
+        [s.node_key for s in res_j.steps]
+    assert res_t.stats["n_steps"] == res_j.stats["n_steps"]
+    assert res_t.stats["objective_evaluations"] == \
+        res_j.stats["objective_evaluations"]
+    for a, b in zip(res_j.steps, res_t.steps):
+        np.testing.assert_allclose(b.error, a.error, rtol=2e-3, atol=1e-4)
+        np.testing.assert_allclose(b.parameters, a.parameters, atol=5e-3)
+        np.testing.assert_allclose(b.arc_length, a.arc_length, atol=2e-2)
+        assert (b.start_frame, b.end_frame) == (a.start_frame, a.end_frame)
+        assert len(b.user_constraints) == len(a.user_constraints)
+        for (bj, bp, bk, bo), (aj, ap, ak, ao) in zip(b.user_constraints,
+                                                      a.user_constraints):
+            assert (bj, bk, bo is None) == (aj, ak, ao is None)
+            np.testing.assert_array_equal(bp, ap)
+    np.testing.assert_allclose(res_t.stats["average_error"],
+                               res_j.stats["average_error"], rtol=2e-3)
+    assert res_t.action_ranges == res_j.action_ranges
+    assert res_t.frames.shape == res_j.frames.shape
+    assert np.all(np.isfinite(res_t.frames))
+    if frames:
+        np.testing.assert_allclose(res_t.frames, res_j.frames, rtol=1e-3,
+                                   atol=1e-2)
+
+
 @pytest.fixture(scope="module", autouse=True)
 def release_jax_executables():
     """Module fixture (import it into a test module to use it): free every
