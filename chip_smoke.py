@@ -119,10 +119,28 @@ Phases, one line each (or a few):
      not hold at exactly that size against their twins (the gesture's
      resampled emit); the session at one LM iteration on the GPU and the
      CPU path with the same draws; the phase's seconds.
-The checks of phases 3-8 and 13-15 run first, but their lines are printed
+ 16. the packaged graph (run after phase 15): the reference-scale walk
+     graph with a static idle primitive fitted on the card to a seeded
+     clip, transition models fitted on the card on every standard edge
+     (2000 pairs, 4 components) and a pfnn/ section at the published PFNN
+     widths (X 342, Y 311, hidden 512, 4 control points; seeded weights),
+     written by the port's zip_writer and loaded by load_graph on the card
+     and on the CPU (the load times, the same nodes and tensors); phase
+     13's config-3 request with use_transition_model, once warm and twice
+     timed: wall seconds, p50 step, steps drawn from a transition model
+     (above 0), the launches of B2, B5 and the emit kernel per request
+     (each above 0) and the shapes each gets, each shape held against the
+     twins; the result through write_bvh -> load_bvh ->
+     bvh_to_quat_frames (roots within 1e-3 cm, unit quaternions within
+     1e-4 up to sign) and retargeted to REF_BVH at twice its size on the
+     card and the CPU; forward_crowd of 1024 characters on the card
+     against the CPU and its time, and 100 frames of the planner's PFNN
+     locomotion through PFNNWrapper; the request at one LM iteration on
+     the card and the CPU with the same draws (phase 13's bounds).
+The checks of phases 3-8 and 13-16 run first, but their lines are printed
 after phase 11: a kernel's device time comes from a profiler trace, and a
 process that has taken one pays more host time per launch afterwards, so the
-traces wait until the host-timed phases (9-11, 13-15) are over.
+traces wait until the host-timed phases (9-11, 13-16) are over.
 Then a JSON line of per-kernel results (time, launches, error against the
 twin, the bound and the one-call library time where there is one; `ms` is
 the device time, `kernel_ms` the events around the wrapper), and as
@@ -1125,12 +1143,22 @@ def _quat_frames_diff(a, b):
 
 def _host_sampler(graph, seed):
     """The draw table: GMM draws from a host torch.Generator, the same on
-    every device."""
+    every device; a transition model's conditioned mixture (on any device)
+    is copied to the host and drawn from the same generator.  `graph`'s
+    primitives live on the CPU."""
     import torch
     from morphablegraphs_tpu_torch.models import primitive as prim_mod
+    from morphablegraphs_tpu_torch.ops import gmm as gmm_ops
     gen = torch.Generator().manual_seed(seed)
-    return lambda key, n: prim_mod.sample_latent(
-        gen, graph.nodes[key].primitive, n).numpy()
+
+    def sampler(key, n, gmm=None):
+        if gmm is None:
+            return prim_mod.sample_latent(gen, graph.nodes[key].primitive,
+                                          n).numpy()
+        host = gmm_ops.GMM(*(getattr(gmm, f).cpu() for f in (
+            "weights", "means", "cov_chol", "prec_chol")))
+        return gmm_ops.sample(gen, host, n).numpy()
+    return sampler
 
 
 def phase_request_reference(graph):
@@ -1888,35 +1916,16 @@ def phase_planner(graph, device, smi: str):
     t_phase = time.perf_counter()
     target, misses = _probe_target(graph, device, 10)
     shapes = {k: {} for k in REQUEST_KERNELS}
-    hooks = {"chol_solve": lambda a, g: tuple(a.shape),
-             "gmm_nll": lambda x, w, *r: (x.shape[0], w.shape[0]),
-             "emit_frames": lambda *a: (a[0].shape[0], a[5].shape[-1],
-                                        bool(a[8]), int(a[9]))}
-
-    def recorder(name):
-        orig, key_of = getattr(kernels, name), hooks[name]
-        seen = shapes[_KERNEL_OF[name]]
-
-        def wrapper(*a, **kw):
-            key = key_of(*a)
-            seen[key] = seen.get(key, 0) + 1
-            return orig(*a, **kw)
-        return orig, wrapper
     runs = []
     for rep in range(PLANNER_REPS + 1):
         planner = _planner(graph, device)
-        saved = {}
-        if rep == 0:
-            for name in hooks:
-                saved[name], wrapper = recorder(name)
-                setattr(kernels, name, wrapper)
+        saved = _record_shapes(shapes) if rep == 0 else {}
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         try:
             entries, wall = _stream(planner, _planner_actions(target))
         finally:
-            for name, orig in saved.items():
-                setattr(kernels, name, orig)
+            _restore_kernels(saved)
         counts = kernels.launch_counts()
         if any(counts[k] <= 0 for k in REQUEST_KERNELS):
             _fail(f"the planner session did not launch B2, B5 and the emit "
@@ -1945,27 +1954,50 @@ def phase_planner(graph, device, smi: str):
 
 _KERNEL_OF = {"chol_solve": "chol_solve", "gmm_nll": "gmm_scores",
               "emit_frames": "emit_frames"}
+# the shape key of each wrapper's call: B2 [C, n, n]; B5 (rows, mixtures);
+# the emit kernel (C, frames, has_prev, seam window)
+_SHAPE_OF = {"chol_solve": lambda a, g: tuple(a.shape),
+             "gmm_nll": lambda x, w, *r: (x.shape[0], w.shape[0]),
+             "emit_frames": lambda *a: (a[0].shape[0], a[5].shape[-1],
+                                        bool(a[8]), int(a[9]))}
 
 
-def phase_planner_kernels(graph, device, shapes):
-    """The planner's kernel shapes that phases 13-14 do not hold at
-    exactly that size, against their twins (B5's and the emit kernel's
-    tolerances): B2 other than [1, 28, 28], B5 on other row counts of one
-    mixture, the emit kernel at C = 1 at other frame counts or options.
-    -> {kernel name: [results]}."""
+def _record_shapes(shapes):
+    """Wrap kernels.chol_solve, gmm_nll and emit_frames so that each call
+    counts its shape in shapes[kernel name] -> the wrappers' originals,
+    for _restore_kernels."""
+    from morphablegraphs_tpu_torch.ops import kernels
+    saved = {}
+    for name, key_of in _SHAPE_OF.items():
+        orig = saved[name] = getattr(kernels, name)
+        seen = shapes[_KERNEL_OF[name]]
+
+        def wrapper(*a, orig=orig, key_of=key_of, seen=seen, **kw):
+            key = key_of(*a)
+            seen[key] = seen.get(key, 0) + 1
+            return orig(*a, **kw)
+        setattr(kernels, name, wrapper)
+    return saved
+
+
+def _restore_kernels(saved):
+    from morphablegraphs_tpu_torch.ops import kernels
+    for name, orig in saved.items():
+        setattr(kernels, name, orig)
+
+
+def _hold_shapes(prim, device, shapes, held, label: str, seed: int):
+    """B2, B5 and the emit kernel against their twins (phase 4's, 7's and
+    8's tolerances) at each recorded shape not in `held`, on inputs drawn
+    from `prim`'s mixture (its eigen basis for the emit kernel): B2 on
+    random SPD systems of that batch, B5 on the rows over that many copies
+    of the mixture, the emit kernel at that batch, frame count, previous
+    clip and seam window.  Each result queues its kernel line.  ->
+    {kernel name: [results]}."""
     import torch
     from morphablegraphs_tpu_torch.models import primitive as prim_mod
     from morphablegraphs_tpu_torch.ops import kernels
-    from morphablegraphs_tpu_torch.synthesis.motion_generator import \
-        _pad_frames
-    f = graph.nodes[("walk", "leftStance")].primitive.n_canonical_frames
-    held = {"chol_solve": {(1, 28, 28)},
-            "gmm_scores": {(1, 1), (50, 1), (3, 3)},
-            "emit_frames": {(1, _pad_frames(f), True, 20),
-                            (1, _pad_frames(2 * f), False, 20),
-                            (1, _pad_frames(f), False, 0)}}
-    gen = torch.Generator(device=device).manual_seed(37)
-    prim = graph.nodes[("pickRight", "reach")].primitive.to(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
     gm = prim.gmm
     out = {k: [] for k in held}
     for shape in sorted(s for s in shapes["chol_solve"]
@@ -1978,7 +2010,7 @@ def phase_planner_kernels(graph, device, shapes):
         x_k, x_t = kernels.chol_solve(a, g), kernels.chol_solve_unrolled(a, g)
         err = (x_k - x_t).abs()
         if bool((err > B2_ATOL + B2_RTOL * x_t.abs()).any()):
-            _fail(f"B2 at the planner's {list(shape)} disagrees with its twin")
+            _fail(f"B2 at the {label}'s {list(shape)} disagrees with its twin")
         bound_ms, by = _bound(_nbytes(a, g, x_k), c * (n ** 3 / 3 + 2 * n * n))
         r = dict(shape=str(list(shape)), max_abs_err=float(err.max()),
                  plain_ms=_time_ms(lambda: kernels.chol_solve_unrolled(a, g),
@@ -1986,7 +2018,7 @@ def phase_planner_kernels(graph, device, shapes):
                  bound_ms=bound_ms, bound_by=by,
                  library_ms=_time_ms(lambda: torch.linalg.solve_ex(a, g), 50))
         out["chol_solve"].append(r)
-        _kernel_line(f"planner B2 chol_solve {r['shape']}: max_abs_err="
+        _kernel_line(f"{label} B2 chol_solve {r['shape']}: max_abs_err="
                      f"{r['max_abs_err']:.3e}",
                      lambda a=a, g=g: kernels.chol_solve(a, g), 50, bound_ms,
                      f"(bound_ms={bound_ms:.6f}, {by})", r)
@@ -2004,7 +2036,7 @@ def phase_planner_kernels(graph, device, shapes):
         if bool(((nll_k - nll_t).abs() > B5_ATOL + B5_RTOL
                  * nll_t.abs()).any()) or bool(
                 ((g_k - g_t).abs() > B5_ATOL + B5_RTOL * g_t.abs()).any()):
-            _fail(f"B5 on the planner's {rows} rows disagrees with its twin")
+            _fail(f"B5 on the {label}'s {rows} rows disagrees with its twin")
         k, d = gm.means.shape
         bound_ms, by = _bound(_nbytes(*args, nll_k, g_k),
                               rows * k * (4 * d * d + 3 * d))
@@ -2014,7 +2046,7 @@ def phase_planner_kernels(graph, device, shapes):
                                    kernels.gmm_nll_and_grad_ref(*args), 5),
                  bound_ms=bound_ms, bound_by=by, library_ms=None)
         out["gmm_scores"].append(r)
-        _kernel_line(f"planner B5 gmm_nll_and_grad {r['shape']}: "
+        _kernel_line(f"{label} B5 gmm_nll_and_grad {r['shape']}: "
                      f"max_abs_err={worst:.3e}",
                      lambda args=args: kernels.gmm_nll_and_grad(*args), 50,
                      bound_ms, f"(bound_ms={bound_ms:.6f}, {by})", r)
@@ -2041,7 +2073,7 @@ def phase_planner_kernels(graph, device, shapes):
         err = (f_k - f_t).abs() * keep[:, None]
         if not bool(torch.isfinite(f_k).all()) or bool(
                 (err > B6_ATOL + B6_RTOL * f_t.abs()).any()):
-            _fail(f"emit_frames at the planner's [{c}, {t_max}] "
+            _fail(f"emit_frames at the {label}'s [{c}, {t_max}] "
                   f"has_prev={has_prev} disagrees with its twin")
         nd, kk = f_k.shape[-1], prim.n_spatial
         bound_ms, by = _bound(
@@ -2055,12 +2087,31 @@ def phase_planner_kernels(graph, device, shapes):
                                    kernels.emit_frames_ref(*args), 5),
                  bound_ms=bound_ms, bound_by=by, library_ms=None)
         out["emit_frames"].append(r)
-        _kernel_line(f"planner B6 emit_frames {r['shape']}: max_abs_err="
+        _kernel_line(f"{label} B6 emit_frames {r['shape']}: max_abs_err="
                      f"{r['max_abs_err']:.3e} (tol {B6_ATOL}+{B6_RTOL}*|x|)",
                      lambda args=args: kernels.emit_frames(*args), 50,
                      bound_ms, f"(bound_ms={bound_ms:.6f}, {by}) twin_ms="
                      f"{r['plain_ms']:.4f}", r)
     torch.cuda.synchronize()
+    return out
+
+
+def phase_planner_kernels(graph, device, shapes):
+    """The planner's kernel shapes that phases 13-14 do not hold at
+    exactly that size, against their twins (B5's and the emit kernel's
+    tolerances): B2 other than [1, 28, 28], B5 on other row counts of one
+    mixture, the emit kernel at C = 1 at other frame counts or options.
+    -> {kernel name: [results]}."""
+    from morphablegraphs_tpu_torch.synthesis.motion_generator import \
+        _pad_frames
+    f = graph.nodes[("walk", "leftStance")].primitive.n_canonical_frames
+    held = {"chol_solve": {(1, 28, 28)},
+            "gmm_scores": {(1, 1), (50, 1), (3, 3)},
+            "emit_frames": {(1, _pad_frames(f), True, 20),
+                            (1, _pad_frames(2 * f), False, 20),
+                            (1, _pad_frames(f), False, 0)}}
+    prim = graph.nodes[("pickRight", "reach")].primitive.to(device)
+    out = _hold_shapes(prim, device, shapes, held, "planner", seed=37)
     print(f"planner: kernels held against their twins at the planner's new "
           f"shapes: { {k: [r['shape'] for r in v] for k, v in out.items()} }"
           f"; the others phases 13-14 hold at exactly that size", flush=True)
@@ -2608,6 +2659,400 @@ def phase_random_crowd(name, stacked, device, card: str, reps: int = 3):
     return float(np.median(times)), fps, launches, run
 
 
+# Phase 16: the packaged graph.  The reference-scale walk graph with a
+# static idle primitive (a seeded 60-frame clip at D 79), transition models
+# on every standard edge (fitted on the card: TM_PAIRS self-supervised
+# pairs, TM_COMPONENTS components) and a pfnn/ section at the published
+# PFNN widths (Holden et al., SIGGRAPH 2017: input 342, output 311, hidden
+# 512, 4 phase control points; seeded weights, as the JAX tests make them:
+# no trained weights ship with the repository), written by the port's
+# zip_writer and loaded by load_graph on the card; then phase 13's config-3
+# request with use_transition_model.
+TM_PAIRS, TM_COMPONENTS = 2000, 4
+PFNN_X, PFNN_Y, PFNN_HIDDEN, PFNN_CONTROLS = 342, 311, 512, 4
+PFNN_CROWD, PFNN_STREAM = 1024, 100
+PACKAGE_REPS = 2
+IDLE_FRAMES = 60
+# write_bvh keeps 6 decimals of a cm and of a degree; float32 roots of up
+# to a few hundred cm keep ~3e-5 cm: the round trip holds the root within
+# 1e-3 cm and each unit joint quaternion, up to its sign, within 1e-4
+BVH_ROOT_ATOL, BVH_QUAT_ATOL = 1e-3, 1e-4
+# retargeting: fp32 quaternion products along chains of up to 8 joints,
+# contracted into FMAs on the card and not on the CPU
+RETARGET_ATOL = 1e-4
+# the retargeted positions on the doubled rig: twice the source's, within
+# fp32 rounding of positions up to ~400 cm
+RETARGET_POS_ATOL = 1e-2
+# PFNN: three fp32 layers (sums of 342 and 512 products; TF32 off) on the
+# card against the CPU, relative to the output's scale
+PFNN_RTOL = 1e-4
+
+
+def _package_graph_dict(device):
+    """The reference-scale walk graph dict plus an idle node whose model
+    is a static primitive fitted on `device` to a seeded clip."""
+    import torch
+    from morphablegraphs_tpu_torch.models.static_primitive import \
+        make_static_model_json
+    from morphablegraphs_tpu_torch.utils import synthetic
+    gd = synthetic.make_reference_scale_graph_dict()
+    d = 3 + 4 * synthetic.REF_N_JOINTS
+    rng = np.random.default_rng(16)
+    ts = np.linspace(0, 2 * np.pi, IDLE_FRAMES)[:, None]
+    clip = np.sin(ts + rng.uniform(0, np.pi, d)[None]) * 0.2
+    clip[:, :3] = [0.0, 90.0, 0.0] + 2.0 * np.sin(ts)
+    q = clip[:, 3:].reshape(IDLE_FRAMES, -1, 4)
+    q[..., 0] += 1.0
+    clip[:, 3:] = (q / np.linalg.norm(q, axis=-1, keepdims=True)).reshape(
+        IDLE_FRAMES, -1)
+    idle = make_static_model_json(
+        torch.as_tensor(clip, dtype=torch.float32, device=device),
+        n_basis=16, name="walk_idle")
+    walk = gd["subgraphs"]["walk"]
+    walk["nodes"]["idle"] = {"name": "walk_idle", "mm": idle}
+    walk["info"]["idle_states"] = ["idle"]
+    gd["transitions"]["walk_idle"] = ["walk_beginLeftStance"]
+    gd["transitions"]["walk_endRightStance"] = ["walk_idle"]
+    return gd, clip
+
+
+def _pfnn_arrays():
+    rng = np.random.default_rng(17)
+    p, h, x, y = PFNN_CONTROLS, PFNN_HIDDEN, PFNN_X, PFNN_Y
+    weights = {"W0": rng.standard_normal(p * h * x) * 0.1,
+               "W1": rng.standard_normal(p * h * h) * 0.1,
+               "W2": rng.standard_normal(p * y * h) * 0.1,
+               "b0": rng.standard_normal(p * h) * 0.1,
+               "b1": rng.standard_normal(p * h) * 0.1,
+               "b2": rng.standard_normal(p * y) * 0.1}
+    means = {"Xmean": rng.standard_normal(x) * 0.1,
+             "Xstd": rng.uniform(0.5, 2.0, x),
+             "Ymean": rng.standard_normal(y) * 0.1,
+             "Ystd": rng.uniform(0.5, 2.0, y)}
+    return ({k: v.astype(np.float32) for k, v in weights.items()},
+            {k: v.astype(np.float32) for k, v in means.items()})
+
+
+def _build_package(path, device):
+    """Write the phase's package -> (its seconds by stage, the idle clip,
+    the number of transition models)."""
+    import torch
+    from morphablegraphs_tpu_torch.models import graph as graph_mod
+    from morphablegraphs_tpu_torch.models import skeleton as sk
+    from morphablegraphs_tpu_torch.models import transition_model as tm
+    from morphablegraphs_tpu_torch.models.zip_writer import write_graph_zip
+    from morphablegraphs_tpu_torch.utils import synthetic
+    t0 = time.perf_counter()
+    gd, clip = _package_graph_dict(device)
+    fit_graph = graph_mod.build_graph_from_dict(gd, device=device)
+    t1 = time.perf_counter()
+    tm.fit_transition_models_for_graph(fit_graph, n_pairs=TM_PAIRS,
+                                       n_components=TM_COMPONENTS, seed=0)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    models = [(f, t, m) for f, node in fit_graph.nodes.items()
+              for t, m in node.transition_models.items()]
+    if not models or not all(bool(torch.isfinite(m.cond_cov_chol).all())
+                             and bool(torch.isfinite(m.weights).all())
+                             for _, _, m in models):
+        _fail("a transition model fitted on the card is not finite")
+    entries = [{"from": f"{f[0]}_{f[1]}", "to": f"{t[0]}_{t[1]}",
+                "model": tm.to_json(m)} for f, t, m in models]
+    weights, means = _pfnn_arrays()
+    walk = gd["subgraphs"]["walk"]
+    write_graph_zip(
+        path, sk.load_bvh(synthetic.REF_BVH)[0],
+        {"walk": {"nodes": {mp: n["mm"] for mp, n in walk["nodes"].items()},
+                  "info": walk["info"]}},
+        gd["transitions"], start_node=tuple(gd["startNode"]),
+        format_version=4.0, pfnn_data={"weights": weights, "means": means},
+        transition_models=entries)
+    t3 = time.perf_counter()
+    return {"graph": t1 - t0, "fit": t2 - t1, "write": t3 - t2}, clip, \
+        len(entries)
+
+
+def _pfnn_codec(d):
+    """A PFNNWrapper encode/decode pair for the phase's seeded network: the
+    input holds the position, heading, target and phase, zero-padded to
+    PFNN_X; the root moves 2 cm a frame toward the target, nudged by the
+    first outputs, and each joint turns by a few of them."""
+    n_joints = (d - 3) // 4
+
+    def encode(w, target_dir):
+        w.target = target_dir
+        x = np.zeros(PFNN_X)
+        x[:12] = np.concatenate([w.position * 0.01, w.direction, target_dir,
+                                 [np.sin(2 * np.pi * w.phase),
+                                  np.cos(2 * np.pi * w.phase), 1.0]])
+        return x
+
+    def decode(y, w):
+        pos = w.position + 2.0 * w.target + 0.05 * np.tanh(
+            np.array([y[0], 0.0, y[2]]))
+        frame = np.zeros(d, np.float32)
+        frame[:3] = pos
+        q = np.concatenate([np.ones((n_joints, 1)), 0.02 * np.tanh(
+            y[3: 3 + 3 * n_joints].reshape(n_joints, 3))], axis=1)
+        frame[3:] = (q / np.linalg.norm(q, axis=1, keepdims=True)).reshape(-1)
+        return frame, pos, 0.02 + 0.01 / (1.0 + np.exp(-y[-1]))
+    return encode, decode
+
+
+def phase_package(device, smi: str):
+    """Phase 16: build the package (graph, transition-model fits on the
+    card, pfnn/ section) and load it with load_graph on the card and on
+    the CPU; the config-3 request with use_transition_model on the card,
+    once warm (recording each kernel's shapes) and PACKAGE_REPS times
+    timed, B2, B5 and the emit kernel launched in each; the kernels held
+    against their twins at the request's shapes; the result through
+    write_bvh -> load_bvh -> bvh_to_quat_frames, and retargeted to REF_BVH
+    at twice its size on the card and on the CPU; the PFNN crowd step of
+    PFNN_CROWD characters on the card against the CPU, and PFNN_STREAM
+    frames of the planner's PFNN locomotion through PFNNWrapper; the
+    request at one LM iteration on the card and on the CPU with the same
+    draws.  -> (launches of the last timed request, {kernel: {shape:
+    launches}}, {kernel: [held results]}, the phase's seconds)."""
+    import tempfile
+
+    import torch
+    from morphablegraphs_tpu_torch.models import graph as graph_mod
+    from morphablegraphs_tpu_torch.models import pfnn, retarget
+    from morphablegraphs_tpu_torch.models import primitive as prim_mod
+    from morphablegraphs_tpu_torch.models import skeleton as sk
+    from morphablegraphs_tpu_torch.ops import kernels
+    from morphablegraphs_tpu_torch.synthesis import state_planner as sp
+    from morphablegraphs_tpu_torch.synthesis.motion_generator import \
+        MotionGenerator
+    from morphablegraphs_tpu_torch.utils import synthetic
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(pathlib.Path(tmp) / "packaged_walk.zip")
+        build_s, clip, n_models = _build_package(path, device)
+        size_mb = pathlib.Path(path).stat().st_size / 2 ** 20
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph = graph_mod.load_graph(path, device=device)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        graph_cpu = graph_mod.load_graph(path, device="cpu")
+        load_cpu_s = time.perf_counter() - t0
+        ref_path = str(pathlib.Path(tmp) / "ref.bvh")
+        pathlib.Path(ref_path).write_text(synthetic.REF_BVH)
+        dst = retarget.load_target_skeleton(ref_path, 2.0)
+        bvh_path = str(pathlib.Path(tmp) / "request.bvh")
+
+        # the loaded graph: node keys, types, models and tensors
+        idle = graph.nodes.get(("walk", "idle"))
+        models = sum(len(n.transition_models) for n in graph.nodes.values())
+        if (set(graph.nodes) != set(graph_cpu.nodes) or idle is None
+                or idle.node_type != graph_mod.NODE_TYPE_IDLE
+                or idle.primitive.n_spatial != 1 or models != n_models
+                or graph.pfnn_data is None
+                or graph.skeleton.n_animated != synthetic.REF_N_JOINTS):
+            _fail("the loaded package lacks a node, the idle primitive, a "
+                  "transition model, its pfnn/ section or its skeleton")
+        for key, node in graph.nodes.items():
+            p, q = node.primitive, graph_cpu.nodes[key].primitive
+            if p.mean_s.device.type != "cuda" or not torch.equal(
+                    p.eigen_s.cpu(), q.eigen_s) or not torch.equal(
+                    p.gmm.prec_chol.cpu(), q.gmm.prec_chol):
+                _fail(f"load_graph on the card gave node {key} other "
+                      "tensors, or tensors off the card")
+        f, n, _ = prim_mod.sample_frames(
+            torch.Generator(device=device).manual_seed(0), idle.primitive,
+            IDLE_FRAMES + 4)
+        idle_err = float(np.abs(f[: int(n)].cpu().numpy() - clip).max())
+        print(f"package: {size_mb:.1f} MB zip ({len(graph.nodes)} nodes, "
+              f"{n_models} transition models, pfnn/ at X {PFNN_X}, Y "
+              f"{PFNN_Y}, hidden {PFNN_HIDDEN}, {PFNN_CONTROLS} control "
+              f"points) built in {sum(build_s.values()):.2f} s (graph and "
+              f"static fit {build_s['graph']:.2f}, transition models on the "
+              f"card {build_s['fit']:.2f} for {TM_PAIRS} pairs and "
+              f"{TM_COMPONENTS} components each, zip {build_s['write']:.2f})"
+              f"; load_graph on {device} {load_s:.3f} s, on the CPU "
+              f"{load_cpu_s:.3f} s; the idle primitive's draw within "
+              f"{idle_err:.2e} of its clip", flush=True)
+        if int(n) != IDLE_FRAMES or idle_err > 0.1:
+            _fail("the static idle primitive does not reproduce its clip")
+
+        # the config-3 request with transition models
+        mg_input, cfg, seed = _requests()["config3"]
+        cfg = dict(cfg, use_transition_model=True)
+        gen = MotionGenerator(graph, cfg, seed=seed, device=device)
+        conditioned = []
+        transition_gmm = gen._transition_gmm
+
+        def counted(key):
+            out = transition_gmm(key)
+            conditioned.append(out is not None)
+            return out
+        gen._transition_gmm = counted
+        shapes = {k: {} for k in REQUEST_KERNELS}
+        walls, runs = [], []
+        for rep in range(PACKAGE_REPS + 1):
+            saved = _record_shapes(shapes) if rep == 0 else {}
+            conditioned.clear()
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            try:
+                res = gen.generate_motion(mg_input)
+                torch.cuda.synchronize()
+            finally:
+                _restore_kernels(saved)
+            wall = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            if not np.all(np.isfinite(res.frames)) or res.stats[
+                    "n_steps"] < 2 or len(res.frames) <= 30:
+                _fail("the package's request: frames not finite or too "
+                      "short")
+            if any(counts[k] <= 0 for k in REQUEST_KERNELS):
+                _fail(f"the package's request did not launch B2, B5 and "
+                      f"the emit kernel: {counts}")
+            if sum(conditioned) < 1:
+                _fail("the package's request drew no step from a "
+                      "transition model")
+            if rep:
+                walls.append(wall)
+                runs.append((res, counts, sum(conditioned)))
+        st = [r.stats for r, _, _ in runs]
+        print(f"package request (config 3, use_transition_model) on "
+              f"{device} ({smi}): {PACKAGE_REPS} timed after a warm one: "
+              f"wall s {[round(w, 4) for w in walls]}, p50 step latency s "
+              f"{[round(x['p50_step_latency'], 4) for x in st]}, steps "
+              f"{[x['n_steps'] for x in st]} ({[c for _, _, c in runs]} "
+              f"drawn from a transition model), average_error "
+              f"{[round(x['average_error'], 3) for x in st]}, frames "
+              f"{[len(r.frames) for r, _, _ in runs]}; launches per request "
+              f"of B2/B5/emit "
+              f"{[tuple(c[k] for k in REQUEST_KERNELS) for _, c, _ in runs]}"
+              f"; kernel shapes in the warm request (launches of each) "
+              + str({k: {str(s_): n_ for s_, n_ in v.items()}
+                     for k, v in shapes.items()}), flush=True)
+        held = _hold_shapes(graph.nodes[("walk", "leftStance")].primitive,
+                            device, shapes, {k: set() for k in shapes},
+                            "package", seed=41)
+
+        # BVH round trip and retargeting of the result
+        frames = res.frames.copy()
+        q = frames[:, 3:].reshape(len(frames), -1, 4)
+        frames[:, 3:] = (q / np.linalg.norm(q, axis=-1, keepdims=True)
+                         ).reshape(len(frames), -1)
+        sk.write_bvh(graph.skeleton, frames, bvh_path)
+        skel2, euler = sk.load_bvh(bvh_path)
+        back = sk.bvh_to_quat_frames(skel2, euler)
+        root_err = float(np.abs(back[:, :3] - frames[:, :3]).max())
+        qa, qb = back[:, 3:].reshape(q.shape), frames[:, 3:].reshape(q.shape)
+        quat_err = float(np.minimum(np.abs(qa - qb).max(-1),
+                                    np.abs(qa + qb).max(-1)).max())
+        t0 = time.perf_counter()
+        out_gpu = retarget.retarget_frames(graph.skeleton, frames, dst,
+                                           scale_factor=2.0, device=device)
+        t_rt = time.perf_counter() - t0
+        out_cpu = retarget.retarget_frames(graph.skeleton, frames, dst,
+                                           scale_factor=2.0, device="cpu")
+        rt_err = float(np.abs(out_gpu - out_cpu).max())
+        p_src = sk.fk_positions(graph.skeleton, torch.as_tensor(frames))
+        p_dst = sk.fk_positions(dst, torch.as_tensor(out_cpu))
+        pos_err = float((p_dst - 2.0 * p_src).abs().max())
+        print(f"package BVH: {len(frames)} frames through write_bvh -> "
+              f"load_bvh -> bvh_to_quat_frames: root max abs diff "
+              f"{root_err:.3e} (tol {BVH_ROOT_ATOL}), unit joint "
+              f"quaternions up to sign {quat_err:.3e} (tol {BVH_QUAT_ATOL})"
+              f"; retargeted to REF_BVH x2 on {device} in {t_rt:.3f} s, "
+              f"against the CPU {rt_err:.3e} (tol {RETARGET_ATOL}), "
+              f"positions against twice the source's {pos_err:.3e} cm (tol "
+              f"{RETARGET_POS_ATOL})", flush=True)
+        if root_err > BVH_ROOT_ATOL or quat_err > BVH_QUAT_ATOL:
+            _fail("the BVH round trip moved the request's frames")
+        if rt_err > RETARGET_ATOL or pos_err > RETARGET_POS_ATOL:
+            _fail("retargeting on the card disagrees with the CPU or the "
+                  "doubled rig")
+
+    # PFNN: the crowd step and a stream through the planner
+    model = pfnn.load_from_arrays(graph.pfnn_data["weights"],
+                                  graph.pfnn_data["means"], PFNN_CONTROLS,
+                                  PFNN_HIDDEN, device=device)
+    model_cpu = pfnn.load_from_arrays(graph.pfnn_data["weights"],
+                                      graph.pfnn_data["means"],
+                                      PFNN_CONTROLS, PFNN_HIDDEN)
+    g = torch.Generator().manual_seed(43)
+    xs = torch.randn((PFNN_CROWD, PFNN_X), generator=g)
+    phases = torch.rand(PFNN_CROWD, generator=g)
+    y_gpu = pfnn.forward_crowd(model, xs.to(device), phases.to(device))
+    y_cpu = pfnn.forward_crowd(model_cpu, xs, phases)
+    scale = float(y_cpu.abs().max())
+    pfnn_err = float((y_gpu.cpu() - y_cpu).abs().max())
+    crowd_ms = _time_ms(lambda: pfnn.forward_crowd(
+        model, xs.to(device), phases.to(device)), 20)
+    w_flops = 2 * PFNN_CONTROLS * PFNN_HIDDEN * (PFNN_X + PFNN_HIDDEN
+                                                 + PFNN_Y)
+    codec = _pfnn_codec(graph.skeleton.n_frame_params)
+    planner = sp.MGStatePlanner(
+        graph, sp.MGStatePlanningSettings(
+            min_pfnn_target_distance=5.0, min_pfnn_primitive_steps=50,
+            max_pfnn_frames=PFNN_STREAM),
+        device=device, pfnn_wrapper=pfnn.PFNNWrapper(model, *codec))
+    planner.use_pfnn = True
+    t0 = time.perf_counter()
+    # one target beyond the stream's reach: every step yields a frame
+    planner.generate_locomotion("walk", np.array([[0.0, 0.0, 400.0]]))
+    torch.cuda.synchronize()
+    t_stream = time.perf_counter() - t0
+    states = list(planner.state_queue._queue)
+    streamed = sum(len(e.state.frames) for e in states)
+    finite = all(np.all(np.isfinite(e.state.frames)) for e in states)
+    print(f"package PFNN: forward_crowd of {PFNN_CROWD} characters on "
+          f"{device} {crowd_ms:.4f} ms (CUDA events; "
+          f"{PFNN_CROWD * w_flops / crowd_ms / 1e9:.2f} TFLOP/s of the 4 "
+          f"control points' layers' {PFNN_CROWD * w_flops / 1e9:.2f} GFLOP,"
+          f" bound {PFNN_CROWD * w_flops / PEAK_FP32_PER_S * 1e3:.4f} ms), "
+          f"against the CPU max "
+          f"abs diff {pfnn_err:.3e} (tol {PFNN_RTOL} x max |y| "
+          f"{scale:.2f}); PFNNWrapper drove the planner's PFNN locomotion "
+          f"for {streamed} frames in {len(states)} states, "
+          f"{t_stream:.3f} s ({1e3 * t_stream / max(streamed, 1):.2f} ms a "
+          f"frame)", flush=True)
+    if pfnn_err > PFNN_RTOL * scale or not bool(
+            torch.isfinite(y_gpu).all()):
+        _fail("the PFNN crowd step on the card disagrees with the CPU")
+    if streamed != PFNN_STREAM or not finite:
+        _fail(f"the PFNN stream gave {streamed} frames, not "
+              f"{PFNN_STREAM}, or frames not finite")
+
+    # the request at one LM iteration on the card and on the CPU
+    cfg1 = dict(cfg, lm_iterations=1)
+    ref = {}
+    for dev, g_ in ((device, graph), ("cpu", graph_cpu)):
+        t0 = time.perf_counter()
+        ref[dev] = (MotionGenerator(g_, cfg1, device=dev,
+                                    sampler=_host_sampler(graph_cpu, 7))
+                    .generate_motion(mg_input), time.perf_counter() - t0)
+    (a, t_gpu), (b, t_cpu) = ref[device], ref["cpu"]
+    keys_ok = [s_.node_key for s_ in a.steps] == [s_.node_key
+                                                  for s_ in b.steps]
+    err_a = np.array([s_.error for s_ in a.steps])
+    err_b = np.array([s_.error for s_ in b.steps])
+    same_len = keys_ok and a.frames.shape == b.frames.shape
+    frame_err, flips = (_quat_frames_diff(a.frames, b.frames)
+                        if same_len else (float("inf"), -1))
+    print(f"package reference (1 LM iteration, use_transition_model): GPU "
+          f"{t_gpu:.3f} s vs CPU {t_cpu:.3f} s, {len(a.steps)} steps, node "
+          f"keys equal={keys_ok}, max |err| diff "
+          f"{float(np.abs(err_a - err_b).max()) if keys_ok else -1:.3e}, "
+          f"frames {a.frames.shape} max abs diff {frame_err:.3e} (tol "
+          f"{WALK_FRAMES_ATOL}; {flips} joint quaternions with the other "
+          f"sign)", flush=True)
+    if not same_len or np.any(np.abs(err_a - err_b)
+                              > 0.05 + 1e-2 * np.abs(err_b)) \
+            or frame_err > WALK_FRAMES_ATOL:
+        _fail("the package's request: the GPU path disagrees with the CPU "
+              "path")
+    return runs[-1][1], shapes, held, time.perf_counter() - t_phase
+
+
 def _trace_summary(prof, device_type, prefix: str = "walk."):
     """(kernels [(name, device ms)], stages {walk.* name: [host ms, device
     busy ms, device span ms]}) of a torch.profiler trace, read from its raw
@@ -2776,6 +3221,9 @@ def main():
     print(f"phase 15 seconds: {time.perf_counter() - t15:.1f} (sessions "
           f"{t_sessions:.1f}, GPU vs CPU reference {t_reference:.1f})",
           flush=True)
+    package_counts, package_shapes, package_held, t16 = phase_package(
+        device, smi)
+    print(f"phase 16 seconds: {t16:.1f}", flush=True)
     phase_random_reference(stacked)
     crowds = {name: phase_crowd(name, stacked, skel, device, smi)
               for name in CROWDS}
@@ -2844,7 +3292,13 @@ def main():
              "shapes": {str(list(k)): n
                         for k, n in planner_shapes[name].items()},
              "held": res_planner[name]}}
-            if name in planner_shapes else {})}
+            if name in planner_shapes else {}),
+         **({"package": {
+             "launches": package_counts[name],
+             "shapes": {str(list(k)): n
+                        for k, n in package_shapes[name].items()},
+             "held": package_held[name]}}
+            if name in package_shapes else {})}
         for name, source, line, counts in table]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

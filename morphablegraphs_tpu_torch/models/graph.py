@@ -1,18 +1,21 @@
-"""Motion state graph: host-side nodes and transitions, plus the stacked
-device tables a graph walk gathers from (port of
-morphablegraphs_tpu.models.graph, the dict loader and `stack_graph`)."""
+"""Motion state graph: host-side nodes and transitions, the packaged-graph
+loader (`load_graph`, `read_zip`) and the stacked device tables a graph walk
+gathers from (port of morphablegraphs_tpu.models.graph)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+import json
+import random
+import zipfile
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .primitive import MotionPrimitive, back_project_unwarped, \
-    load_primitive_json
-from .skeleton import Skeleton
+    load_primitive_json, sample_latent
+from .skeleton import Skeleton, load_bvh
 
 NODE_TYPE_START = "start"
 NODE_TYPE_STANDARD = "standard"
@@ -35,17 +38,40 @@ class GraphNode:
     outgoing_edges: Dict[Tuple[str, str], str] = dataclasses.field(
         default_factory=dict)
     average_step_length: float = 0.0
-    # the JAX package's space-partitioning tree; not ported, always None
+    n_standard_transitions: int = 0
+    # a space-partitioning tree of candidate latents, which the JAX
+    # package searches under constrained_sampling_mode="cluster_tree_search"
+    # only; both entry points of the port refuse that mode (ROADMAP item
+    # 15), and the loader logs a package's trees without loading them
     cluster_tree: Optional[object] = None
+    # per-edge conditional-GMM transition models (models/transition_model)
+    transition_models: Dict[Tuple[str, str], object] = dataclasses.field(
+        default_factory=dict)
+
+    @property
+    def action_name(self) -> str:
+        return self.key[0]
+
+    @property
+    def name(self) -> str:
+        return self.key[1]
 
     def edges_of_type(self, transition_type: str) -> List[Tuple[str, str]]:
         return [k for k, t in self.outgoing_edges.items()
                 if t == transition_type]
 
     def has_transition_model(self, to_key) -> bool:
-        """Per-edge transition models are not ported: never."""
-        del to_key
-        return False
+        return to_key in self.transition_models
+
+    def predict_gmm(self, to_key, current_parameters):
+        """The mixture over the next node's latent conditioned on this
+        node's latent; without a model on the edge, this node's own
+        mixture (as the reference's node does)."""
+        from . import transition_model as tm
+        if to_key in self.transition_models:
+            return tm.predict(self.transition_models[to_key],
+                              current_parameters)
+        return self.primitive.gmm
 
 
 @dataclasses.dataclass
@@ -89,6 +115,8 @@ class MotionStateGraph:
         self.action_definitions: dict = {}
         # a HandPoseGenerator when the graph dict carries hand_pose_info
         self.hand_pose_generator = None
+        # a package's raw PFNN arrays {weights, means} (models/pfnn)
+        self.pfnn_data: Optional[dict] = None
 
     def add_transition(self, from_key, to_key):
         self.nodes[from_key].outgoing_edges[to_key] = self._transition_type(
@@ -140,17 +168,74 @@ class MotionStateGraph:
                               (group.idle_states, NODE_TYPE_IDLE)):
                 for k in states:
                     self.nodes[(action, k)].node_type = t
-        for mp_name, s in info.get("stats", {}).items():
+        for mp_name, st in info.get("stats", {}).items():
             if (action, mp_name) in self.nodes:
-                self.nodes[(action, mp_name)].average_step_length = \
-                    s.get("average_step_length", 0.0)
+                node = self.nodes[(action, mp_name)]
+                node.average_step_length = st.get("average_step_length", 0.0)
+                node.n_standard_transitions = st.get("n_standard_transitions",
+                                                     0)
 
+    # -- random walks --------------------------------------------------
+    def get_random_start_node(self, rng: random.Random, action: str):
+        group = self.node_groups[action]
+        if group.start_states:
+            return (action, rng.choice(group.start_states))
+        return None
+
+    def random_transition(self, rng: random.Random, node_key,
+                          transition_type):
+        edges = self.nodes[node_key].edges_of_type(transition_type)
+        if edges:
+            return edges[rng.randrange(len(edges))]
+        return None
+
+    def generate_random_walk(self, generator: Optional[torch.Generator],
+                             action: str, number_of_steps: int,
+                             rng: Optional[random.Random] = None,
+                             sampler: Optional[Callable] = None):
+        """A host-level random walk: a start state, number_of_steps standard
+        transitions and one end transition -> [{node_key, parameters}].
+        Transitions are chosen by `rng` (random.Random(0) by default), as
+        in the JAX package; each entry's latent is one draw of
+        sampler(node_key, 1) when given, else of the node's mixture from
+        `generator`."""
+        rng = rng or random.Random(0)
+        current = self.get_random_start_node(rng, action)
+        if current is None:
+            current = self.node_groups[action].node_keys[0]
+        walk = []
+        for i in range(number_of_steps + 2):
+            if sampler is not None:
+                params = sampler(current, 1)[0]
+            else:
+                params = sample_latent(generator,
+                                       self.nodes[current].primitive, 1)[0]
+            walk.append({"node_key": current, "parameters": np.asarray(
+                torch.as_tensor(params).cpu(), np.float32)})
+            if i > number_of_steps:
+                break
+            t_type = (NODE_TYPE_STANDARD if i < number_of_steps
+                      else NODE_TYPE_END)
+            nxt = self.random_transition(rng, current, t_type)
+            if nxt is None and t_type == NODE_TYPE_STANDARD:
+                nxt = self.random_transition(rng, current, NODE_TYPE_END)
+            if nxt is None:
+                break
+            current = nxt
+        return walk
+
+    # -- statistics ----------------------------------------------------
     def update_motion_stats(self, generator: torch.Generator,
-                            n_samples: int = 5):
-        """Median root-path arc length over n_samples GMM draws (unwarped
-        back-projection) for every node without packaged statistics."""
+                            n_samples: int = 5, method: str = "median",
+                            only_missing: bool = True):
+        """Every node's standard-transition count, and the median (or mean)
+        root-path arc length over n_samples GMM draws (unwarped
+        back-projection) as its average step length: with only_missing,
+        for the nodes without packaged statistics alone."""
         for node in self.nodes.values():
-            if node.average_step_length != 0.0:
+            node.n_standard_transitions = len(
+                node.edges_of_type(NODE_TYPE_STANDARD))
+            if only_missing and node.average_step_length != 0.0:
                 continue
             prim = node.primitive
             lat = _sample_gmm(prim, n_samples, generator)
@@ -158,8 +243,10 @@ class MotionStateGraph:
                 ..., :3]
             seg = torch.linalg.vector_norm(root[:, 1:] - root[:, :-1],
                                            dim=-1)
+            lengths = seg.sum(-1).cpu().numpy()
             node.average_step_length = float(
-                np.median(seg.sum(-1).cpu().numpy()))
+                np.median(lengths) if method == "median" else
+                np.mean(lengths))
 
 
 def _sample_gmm(prim: MotionPrimitive, n: int,
@@ -184,25 +271,45 @@ def _resolve_node_key(s: str, split_key: str, nodes: dict):
 
 def build_graph_from_dict(graph_dict: dict,
                           skeleton: Optional[Skeleton] = None,
-                          stats_seed: int = 1234) -> MotionStateGraph:
+                          stats_seed: int = 1234,
+                          device=None) -> MotionStateGraph:
     """Build a graph from the zip reader's dict form ("subgraphs",
-    "transitions", "startNode").  Nodes without packaged statistics get
-    their average step length from a torch.Generator seeded with
-    stats_seed; its draws differ from the JAX package's jax.random ones."""
+    "transitions", "startNode", "actionDefinitions", "hand_pose_info",
+    "transition_models", "pfnn_data") with its primitives, mixtures and
+    transition models on `device` (the CPU by default).  When a node lacks
+    packaged statistics, every node's standard-transition count is
+    recounted and the missing average step lengths are sampled from a
+    torch.Generator seeded with stats_seed (its draws differ from the JAX
+    package's).  A node's cluster tree is not loaded: one message per such
+    node goes to the log (ROADMAP item 15)."""
+    from ..utils.log import LOG_MODE_DEBUG, write_message_to_log
     graph = MotionStateGraph()
     graph.skeleton = skeleton
     for action, action_data in graph_dict.get("subgraphs", {}).items():
+        write_message_to_log(f"Load action {action} "
+                             f"({len(action_data.get('nodes', {}))} "
+                             "primitives)", LOG_MODE_DEBUG)
         group = NodeGroup(name=action)
         graph.node_groups[action] = group
         for mp_name, desc in action_data.get("nodes", {}).items():
             key = (action, mp_name)
-            prim = load_primitive_json(desc["mm"], name=f"{action}_{mp_name}")
+            prim = load_primitive_json(desc["mm"], name=f"{action}_{mp_name}",
+                                       device=device)
             graph.nodes[key] = GraphNode(key=key, primitive=prim)
             group.node_keys.append(key)
             st = desc.get("stats")
             if st:
                 graph.nodes[key].average_step_length = float(
                     st.get("average_step_length", 0.0))
+                graph.nodes[key].n_standard_transitions = int(
+                    st.get("n_standard_transitions", 0))
+            if ("space_partition_json" in desc
+                    or "space_partition_pickle" in desc):
+                write_message_to_log(
+                    f"node {key} carries a cluster tree, which is not loaded:"
+                    " cluster-tree search is not ported to "
+                    "morphablegraphs_tpu_torch yet (ROADMAP item 15); the "
+                    "node samples its GMM")
             # the model files' keyframes feed the label maps
             kf = desc["mm"].get("keyframes", {})
             if kf:
@@ -226,7 +333,22 @@ def build_graph_from_dict(graph_dict: dict,
                 if to_key is not None:
                     graph.add_transition(from_key, to_key)
 
-    graph.update_motion_stats(torch.Generator().manual_seed(stats_seed))
+    # per-edge transition models carry their own from/to keys
+    for entry in graph_dict.get("transition_models", []):
+        from . import transition_model as tm
+        split_key = ":" if ":" in entry["from"] else "_"
+        from_key = _resolve_node_key(entry["from"], split_key, graph.nodes)
+        to_key = _resolve_node_key(entry["to"], split_key, graph.nodes)
+        if from_key is None or to_key is None:
+            write_message_to_log(
+                f"skipping transition model {entry['from']} -> "
+                f"{entry['to']}: unknown node")
+            continue
+        graph.nodes[from_key].transition_models[to_key] = tm.from_json(
+            entry["model"], device=device)
+
+    if any(n.average_step_length == 0.0 for n in graph.nodes.values()):
+        graph.update_motion_stats(torch.Generator().manual_seed(stats_seed))
     if "actionDefinitions" in graph_dict:
         graph.action_definitions = graph_dict["actionDefinitions"]
     if "startNode" in graph_dict:
@@ -235,7 +357,134 @@ def build_graph_from_dict(graph_dict: dict,
         from ..synthesis.hand_pose import HandPoseGenerator
         graph.hand_pose_generator = HandPoseGenerator(graph.skeleton)
         graph.hand_pose_generator.init_from_desc(graph_dict["hand_pose_info"])
+    if "pfnn_data" in graph_dict:
+        graph.pfnn_data = graph_dict["pfnn_data"]
     return graph
+
+
+def read_zip(zip_path: str) -> dict:
+    """A packaged graph zip (format versions 1-4) -> the dict form
+    `build_graph_from_dict` reads."""
+    with zipfile.ZipFile(zip_path, "r") as zf:
+        return _read_zip_open(zf)
+
+
+def _read_zip_open(zf: zipfile.ZipFile) -> dict:
+    data = json.loads(zf.read("graph_definition.json").decode("utf-8"))
+    version = float(data.get("formatVersion", 1.0))
+    names = set(zf.namelist())
+
+    ea_dir = "elementary_action_models"
+    ea_prefix = "elementary_action_"
+    actions: Dict[str, dict] = {}
+    for name in sorted(names):
+        parts = name.split("/")
+        if version >= 2.0:
+            if not (len(parts) > 2 and parts[0] == ea_dir
+                    and parts[2].endswith("mm.json")):
+                continue
+            action_dir, fname = parts[1], parts[2]
+        else:
+            if not (len(parts) > 1 and parts[1].endswith("mm.json")):
+                continue
+            action_dir, fname = parts[0], parts[1]
+        # elementary_action_<name>: action names may contain underscores,
+        # so the prefix is stripped, never split on
+        action_key = (action_dir[len(ea_prefix):]
+                      if action_dir.startswith(ea_prefix) else action_dir)
+        entry = actions.setdefault(action_key, {"name": action_key,
+                                                "nodes": {}})
+        mp_full = fname[: -len("_mm.json")]  # <action>_<primitive>
+        mp_key = (mp_full[len(action_key) + 1:]
+                  if mp_full.startswith(action_key + "_")
+                  else mp_full[len(mp_full.split("_")[0]) + 1:])
+        prefix = f"{ea_dir}/{action_dir}" if version >= 2.0 else action_dir
+        node = {"name": mp_full,
+                "mm": json.loads(zf.read(name).decode("utf-8"))}
+        stats_path = f"{prefix}/{mp_full}.stats"
+        if stats_path in names:
+            node["stats"] = json.loads(zf.read(stats_path).decode("utf-8"))
+        tree_path = f"{prefix}/{mp_full}_cluster_tree.json"
+        data_path = f"{prefix}/{mp_full}_cluster_tree.data"
+        pck_path = f"{prefix}/{mp_full}_cluster_tree.pck"
+        if tree_path in names:
+            node["space_partition_json"] = json.loads(
+                zf.read(tree_path).decode("utf-8"))
+            if data_path in names:
+                node["space_partition_data"] = zf.read(data_path)
+        elif pck_path in names:
+            node["space_partition_pickle"] = zf.read(pck_path)
+        entry["nodes"][mp_key] = node
+        meta_path = f"{prefix}/meta_information.json"
+        if meta_path in names and "info" not in entry:
+            entry["info"] = json.loads(zf.read(meta_path).decode("utf-8"))
+
+    data["subgraphs"] = actions
+    # whatever skeleton the package carries, whatever its version
+    if "skeleton.bvh" in names:
+        data["bvh_skeleton_string"] = zf.read("skeleton.bvh").decode("utf-8")
+    if "skeleton.json" in names:
+        data["skeleton"] = json.loads(zf.read("skeleton.json").decode("utf-8"))
+
+    if "hand_poses/hand_pose_info.json" in names:
+        info = json.loads(zf.read("hand_poses/hand_pose_info.json")
+                          .decode("utf-8"))
+        info["skeletonStrings"] = {}
+        for n in names:
+            parts = n.split("/")
+            if len(parts) > 1 and parts[0] == "hand_poses" \
+                    and n.endswith(".bvh"):
+                info["skeletonStrings"][parts[1][:-4]] = zf.read(n).decode(
+                    "utf-8")
+        data["hand_pose_info"] = info
+
+    # conditional-GMM JSONs carry their own from/to keys; the reference's
+    # .GPM blobs are pickles of an unshipped package and cannot be read
+    tm_entries = []
+    for n in sorted(names):
+        if n.startswith("transition_models/") and n.endswith(".json"):
+            tm_entries.append(json.loads(zf.read(n).decode("utf-8")))
+        elif n.startswith("transition_models/") and n.endswith(".GPM"):
+            from ..utils.log import write_message_to_log
+            write_message_to_log(
+                f"skipping {n}: reference .GPM transition models are "
+                "pickled objects of an unshipped package; retrain with "
+                "models/transition_model.fit_transition_model")
+    if tm_entries:
+        data["transition_models"] = tm_entries
+
+    from .pfnn import read_pfnn_arrays  # raises on a partial pfnn/ section
+    pfnn_data = read_pfnn_arrays(zf)
+    if pfnn_data is not None:
+        data["pfnn_data"] = pfnn_data
+    return data
+
+
+def load_graph(path: str, device=None) -> MotionStateGraph:
+    """Load a packaged graph (`.zip`) with its primitives, mixtures and
+    transition models on `device` (the CUDA device unless given another).
+    The skeleton comes from skeleton.bvh, else skeleton.json; without its
+    own joint weights it gets the package's explicit ones or
+    depth-attenuated defaults."""
+    from ..utils import device as device_mod
+    dev = device_mod.resolve(device, "load_graph")
+    if not path.endswith(".zip"):
+        path = path + ".zip"
+    data = read_zip(path)
+    skeleton = None
+    if "bvh_skeleton_string" in data:
+        skeleton, _ = load_bvh(data["bvh_skeleton_string"])
+    elif "skeleton" in data:
+        from .skeleton import load_skeleton_json
+        skeleton = load_skeleton_json(data["skeleton"])
+    if skeleton is not None and not skeleton.joint_weights:
+        from .skeleton_models import depth_joint_weights
+        explicit = (data.get("skeleton") or {}).get("joint_weights")
+        weights = (tuple(float(w) for w in explicit) if explicit
+                   else depth_joint_weights(skeleton))
+        if len(weights) == skeleton.n_animated:
+            skeleton = dataclasses.replace(skeleton, joint_weights=weights)
+    return build_graph_from_dict(data, skeleton, device=dev)
 
 
 @dataclasses.dataclass

@@ -1,5 +1,5 @@
 """Motion primitive: fPCA eigenbases + GMM + B-spline knots (port of
-morphablegraphs_tpu.models.primitive, loading and spatial back-projection).
+morphablegraphs_tpu.models.primitive: loading, back-projection, sampling).
 
 The translation maxima are baked into the eigenvectors/mean at load time,
 so back-projection is reshape(E @ alpha + mu); the temporal mean and
@@ -8,6 +8,8 @@ eigensplines are discretized onto the canonical frame grid."""
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -72,11 +74,12 @@ def _bake_translation_scale(eigen: np.ndarray, mean: np.ndarray,
 
 def load_primitive_json(data: Dict[str, Any], name: str = "",
                         device=None) -> MotionPrimitive:
-    """Build a primitive from a parsed model JSON dict (legacy v1/v2 or the
-    v3 {sspm, tspm, gmm} schema)."""
+    """Build a primitive from a parsed model JSON dict (legacy v1/v2, the
+    v3 {sspm, tspm, gmm} schema, or a single-exemplar static primitive's
+    `spatial_coeffs`) with its tensors on `device`."""
     if "spatial_coeffs" in data:
-        raise NotImplementedError(
-            "single-exemplar static primitives are not ported yet")
+        from .static_primitive import load_static_primitive_json
+        return load_static_primitive_json(data, name, device=device)
     if "sspm" in data:
         sspm, tspm, gmm_d = data["sspm"], data["tspm"], data["gmm"]
         eigen_s = np.asarray(sspm["eigen"], np.float64).T
@@ -140,6 +143,14 @@ def load_primitive_json(data: Dict[str, Any], name: str = "",
         has_time=t_eigen.size > 0, animated_joints=animated,
         keyframes=tuple(sorted((str(k), int(v)) for k, v in
                                data.get("keyframes", {}).items())))
+
+
+def load_primitive(path: str, device=None) -> MotionPrimitive:
+    """Load a `<name>_mm.json` model file onto `device`."""
+    with open(path) as f:
+        data = json.load(f)
+    return load_primitive_json(
+        data, os.path.basename(path).replace("_mm.json", ""), device=device)
 
 
 def back_project_spatial(prim: MotionPrimitive,
@@ -210,3 +221,12 @@ def sample_latent(generator: torch.Generator, prim: MotionPrimitive,
                   n: int = 1) -> torch.Tensor:
     """n latents [n, L] from the primitive's GMM, drawn from `generator`."""
     return gmm_ops.sample(generator, prim.gmm, n)
+
+
+def sample_frames(generator: torch.Generator, prim: MotionPrimitive,
+                  max_frames: int, use_time: bool = True,
+                  speed: float = 1.0):
+    """One GMM draw back-projected: (frames [max_frames, n_dim], n_frames,
+    time_function), as `back_project`."""
+    return back_project(prim, sample_latent(generator, prim, 1)[0],
+                        max_frames, use_time, speed)

@@ -1,5 +1,5 @@
-"""Skeleton topology, BVH parsing and forward kinematics (port of
-morphablegraphs_tpu.models.skeleton).
+"""Skeleton topology, BVH and skeleton.json I/O and forward kinematics
+(port of morphablegraphs_tpu.models.skeleton).
 
 Frame layout: [root_tx, root_ty, root_tz, q_joint0 (w,x,y,z), q_joint1, ...]
 for the animated joints in skeleton order; length 3 + 4 * n_animated.
@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import List, Optional
+import io
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -207,6 +208,202 @@ def load_bvh(path_or_text: str):
 
 
 
+def load_skeleton_json(data: dict) -> Skeleton:
+    """A Skeleton from a package's skeleton.json form: {"root", "frame_time",
+    "animated_joints", "nodes": {name: {"offset", "children", "channels"
+    (optional), "rotation" (optional rest rotation, w first)}}}.  Without a
+    root, the node no other lists as a child; without channels, a root
+    gets positions and rotations, an animated joint rotations."""
+    nodes = data["nodes"]
+    root = data.get("root")
+    if root is None:
+        children = {c for nd in nodes.values() for c in nd.get("children", ())}
+        root = next(n for n in nodes if n not in children)
+    names: List[str] = []
+    parents: List[int] = []
+    offsets: List[list] = []
+    channels: List[tuple] = []
+    rests: List[tuple] = []
+    animated = tuple(data.get("animated_joints", ()))
+
+    def visit(name: str, parent_idx: int):
+        nd = nodes[name]
+        idx = len(names)
+        names.append(name)
+        parents.append(parent_idx)
+        offsets.append(list(nd.get("offset", (0.0, 0.0, 0.0))))
+        rot = nd.get("rotation")
+        rests.append(tuple(float(v) for v in rot) if rot is not None
+                     else (1.0, 0.0, 0.0, 0.0))
+        chans = nd.get("channels")
+        if chans is None:
+            chans = (("Xposition", "Yposition", "Zposition",
+                      "Xrotation", "Yrotation", "Zrotation")
+                     if parent_idx < 0 else
+                     ("Xrotation", "Yrotation", "Zrotation")
+                     if not animated or name in animated else ())
+        channels.append(tuple(chans))
+        for child in nd.get("children", ()):
+            if child in nodes:
+                visit(child, idx)
+
+    visit(root, -1)
+    if not animated:
+        animated = tuple(n for n, c in zip(names, channels)
+                         if any(ch.endswith("rotation") for ch in c))
+    else:
+        animated = tuple(n for n in names if n in animated)  # DFS order
+    identity = (1.0, 0.0, 0.0, 0.0)
+    rest_tuple = tuple(rests) if any(r != identity for r in rests) else ()
+    return Skeleton(tuple(names), tuple(parents),
+                    np.asarray(offsets, np.float32), tuple(channels),
+                    animated, float(data.get("frame_time", 1.0 / 30)),
+                    rest_rotations=rest_tuple)
+
+
+def _rotation_order(chans: Sequence[str]) -> str:
+    return "r" + "".join(c[0].lower() for c in chans if c.endswith("rotation"))
+
+
+def _np_to_euler(q_wxyz: np.ndarray, order: str) -> np.ndarray:
+    """Host-side quaternion (w first) -> euler degrees, scipy's intrinsic
+    convention (the inverse of `_np_from_euler`)."""
+    from scipy.spatial.transform import Rotation
+    r = Rotation.from_quat(np.roll(np.asarray(q_wxyz, np.float64), -1, axis=-1))
+    return r.as_euler(order[1:].upper(), degrees=True)
+
+
+def _np_fix_signs_sequential(quats: np.ndarray) -> np.ndarray:
+    """Host-side twin of ops.quat.fix_signs_sequential over axis 0."""
+    d = np.sum(quats[1:] * quats[:-1], axis=-1)
+    run = np.cumprod(np.where(d < 0.0, -1.0, 1.0), axis=0)
+    run = np.concatenate([np.ones((1,) + run.shape[1:], run.dtype), run],
+                         axis=0)
+    return quats * run[..., None]
+
+
+def bvh_to_quat_frames(skel: Skeleton, euler_frames: np.ndarray) -> np.ndarray:
+    """BVH channel rows [T, n_channels] -> quaternion frames [T, 3 + 4J]
+    (float32 numpy): the root translation from the first position channels
+    (mapped by channel letter), each animated joint's euler triplet in its
+    channel order, signs aligned frame to frame."""
+    euler_frames = np.asarray(euler_frames, np.float64)
+    t = euler_frames.shape[0]
+    root = np.zeros((t, 3), np.float32)
+    col = 0
+    root_seen = False
+    quats_per_joint = []
+    for name, chans in zip(skel.node_names, skel.node_channels):
+        n = len(chans)
+        if n == 0:
+            continue
+        vals = euler_frames[:, col: col + n]
+        col += n
+        pos_cols = [i for i, c in enumerate(chans) if c.endswith("position")]
+        rot_cols = [i for i, c in enumerate(chans) if c.endswith("rotation")]
+        if pos_cols and not root_seen:
+            for ci in pos_cols:
+                root[:, "XYZ".index(chans[ci][0].upper())] = vals[:, ci]
+            root_seen = True
+        if rot_cols and name in skel.animated_joints:
+            quats_per_joint.append(_np_from_euler(vals[:, rot_cols],
+                                                  _rotation_order(chans)))
+    quats = _np_fix_signs_sequential(np.stack(quats_per_joint, axis=1))
+    return np.concatenate([root, quats.reshape(t, -1)],
+                          axis=1).astype(np.float32)
+
+
+def _export_channels(skel: Skeleton) -> tuple:
+    """Per-node channels for BVH export: a non-animated joint with a rest
+    rotation gets rotation channels, so the written file carries the
+    geometry FK computes (an OFFSET-only joint is identity to a reader)."""
+    identity = (1.0, 0.0, 0.0, 0.0)
+    rests = skel.rest_rotations or ()
+    out = []
+    for i, chans in enumerate(skel.node_channels):
+        has_rot = any(c.endswith("rotation") for c in chans)
+        rest = rests[i] if i < len(rests) else identity
+        if (not has_rot and tuple(rest) != identity
+                and not skel.node_names[i].endswith("_EndSite")):
+            chans = tuple(chans) + ("Xrotation", "Yrotation", "Zrotation")
+        out.append(tuple(chans))
+    return tuple(out)
+
+
+def quat_frames_to_bvh(skel: Skeleton, quat_frames: np.ndarray) -> np.ndarray:
+    """Quaternion frames [T, 3 + 4J] -> BVH channel rows (float64 numpy),
+    the inverse of `bvh_to_quat_frames`; fixed joints with a rest rotation
+    write it as constant channels."""
+    quat_frames = np.asarray(quat_frames)
+    t = quat_frames.shape[0]
+    cols = []
+    rests = skel.rest_rotations or ()
+    for ni, (name, chans) in enumerate(zip(skel.node_names,
+                                           _export_channels(skel))):
+        if len(chans) == 0:
+            continue
+        vals = np.zeros((t, len(chans)), np.float64)
+        if name == skel.node_names[0]:
+            for ci, c in enumerate(chans):
+                if c.endswith("position"):
+                    vals[:, ci] = quat_frames[:, "XYZ".index(c[0])]
+        rot_idx = [i for i, c in enumerate(chans) if c.endswith("rotation")]
+        if rot_idx:
+            if name in skel.animated_joints:
+                q = quat_frames[:, skel.quat_slice(name)]
+            elif ni < len(rests):
+                q = np.tile(np.asarray(rests[ni], np.float64), (t, 1))
+            else:
+                q = np.tile([1.0, 0, 0, 0], (t, 1))
+            vals[:, rot_idx] = _np_to_euler(q, _rotation_order(chans))
+        cols.append(vals)
+    return np.concatenate(cols, axis=1)
+
+
+def write_bvh(skel: Skeleton, quat_frames: np.ndarray,
+              path: Optional[str] = None) -> str:
+    """Quaternion frames [T, 3 + 4J] -> BVH text, written to `path` when
+    given."""
+    buf = io.StringIO()
+    buf.write("HIERARCHY\n")
+    export_chans = _export_channels(skel)
+    children: Dict[int, List[int]] = {}
+    for i, p in enumerate(skel.parents):
+        children.setdefault(p, []).append(i)
+
+    def emit(idx: int, depth: int):
+        indent = "  " * depth
+        name = skel.node_names[idx]
+        if idx == 0:
+            buf.write(f"{indent}ROOT {name}\n")
+        elif name.endswith("_EndSite"):
+            buf.write(f"{indent}End Site\n")
+        else:
+            buf.write(f"{indent}JOINT {name}\n")
+        buf.write(f"{indent}{{\n")
+        o = skel.offsets[idx]
+        buf.write(f"{indent}  OFFSET {o[0]:.6f} {o[1]:.6f} {o[2]:.6f}\n")
+        chans = export_chans[idx]
+        if chans:
+            buf.write(f"{indent}  CHANNELS {len(chans)} {' '.join(chans)}\n")
+        for c in children.get(idx, []):
+            emit(c, depth + 1)
+        buf.write(f"{indent}}}\n")
+
+    emit(0, 0)
+    rows = quat_frames_to_bvh(skel, quat_frames)
+    buf.write("MOTION\n")
+    buf.write(f"Frames: {rows.shape[0]}\n")
+    buf.write(f"Frame Time: {skel.frame_time:.6f}\n")
+    for row in rows:
+        buf.write(" ".join(f"{v:.6f}" for v in row) + "\n")
+    text = buf.getvalue()
+    if path is not None:
+        with open(path, "w") as f:
+            f.write(text)
+    return text
+
+
 # ---------------------------------------------------------------------------
 # Forward kinematics
 # ---------------------------------------------------------------------------
@@ -365,3 +562,21 @@ def fk_root(skel: Skeleton, frames: torch.Tensor):
                                device=frames.device)
         ori = rest.expand(frames.shape[:-1] + (4,))
     return pos, ori
+
+
+def fk_point_cloud(skel: Skeleton, frames: torch.Tensor,
+                   normalize: bool = False) -> torch.Tensor:
+    """Every node's position per frame [..., n_nodes, 3], the point cloud
+    of the pose distances.  normalize=True zeroes the root translation and
+    (for an animated root) its rotation first; a non-animated root's rest
+    rotation is the same for every frame and stays."""
+    frames = torch.as_tensor(frames)
+    if normalize:
+        frames = frames.clone()
+        frames[..., :3] = 0.0
+        if skel.node_names[0] in skel.animated_joints:
+            a = skel.animated_index_of(skel.node_names[0])
+            frames[..., 3 + 4 * a: 7 + 4 * a] = torch.tensor(
+                [1.0, 0.0, 0.0, 0.0], dtype=frames.dtype,
+                device=frames.device)
+    return fk_positions(skel, frames)

@@ -83,3 +83,20 @@ def basis_matrix_np(knots: np.ndarray, t: np.ndarray,
                       / np.where(d2 > 0, d2, 1.0), 0.0)
         n = w1 * n[..., :-1] + w2 * n[..., 1:]
     return n[..., :n_basis]
+
+
+def fit_coeffs(y: torch.Tensor, knots: torch.Tensor, t: torch.Tensor,
+               degree: int = DEGREE) -> torch.Tensor:
+    """Least-squares B-spline fit min ||B(t) C - y||: samples y [T, C] at
+    times t [T] -> coefficients [n_basis, C].  Solved by QR, not the
+    normal equations, whose Gram matrix squares the basis's condition
+    number; exact where the basis has full column rank (T >= n_basis)."""
+    q, r = torch.linalg.qr(basis_matrix(knots, t, degree))
+    return torch.linalg.solve_triangular(r, q.T @ y, upper=True)
+
+
+def basis_matrix_canonical(knots: np.ndarray, n_frames: int,
+                           degree: int = DEGREE) -> np.ndarray:
+    """The basis at the canonical integer frames 0..n_frames-1 (float64
+    numpy, computed on the host)."""
+    return basis_matrix_np(knots, np.arange(n_frames), degree)

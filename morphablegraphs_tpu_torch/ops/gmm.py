@@ -100,3 +100,13 @@ def sample(generator: torch.Generator, gmm: GMM, n: int) -> torch.Tensor:
                       dtype=gmm.means.dtype, device=gmm.means.device)
     return gmm.means[comp] + torch.einsum("nde,ne->nd", gmm.cov_chol[comp],
                                           eps)
+
+
+def score(gmm: GMM, x: torch.Tensor) -> torch.Tensor:
+    """Mean log-likelihood over the rows of x [..., N, D] -> [...]."""
+    return torch.mean(log_prob(gmm, x), dim=-1)
+
+
+def sample_one(generator: torch.Generator, gmm: GMM) -> torch.Tensor:
+    """One draw [D] (see `sample`)."""
+    return sample(generator, gmm, 1)[0]

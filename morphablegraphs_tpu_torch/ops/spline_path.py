@@ -328,3 +328,20 @@ def closest_points_advancing(sp: PathSpline, points: torch.Tensor,
     d = torch.sqrt(torch.sum(((pos - points)
                               * sp.dim_mask()[..., None, :]) ** 2, dim=-1))
     return pos, arc, d
+
+
+def transform(sp: PathSpline, q_y: torch.Tensor,
+              delta: torch.Tensor) -> PathSpline:
+    """The spline moved rigidly: control and table points rotated by q_y
+    [..., 4] and shifted by delta [..., 3], the arc table recomputed from
+    the moved table points."""
+    from . import quat
+    q = q_y[..., None, :]
+    d = delta[..., None, :]
+    seg_pts = quat.rotate_vec(q, sp.table_points) + d
+    seg = torch.linalg.vector_norm(seg_pts[..., 1:, :] - seg_pts[..., :-1, :],
+                                   dim=-1)
+    arc = torch.cat([torch.zeros_like(seg[..., :1]),
+                     torch.cumsum(seg, dim=-1)], dim=-1)
+    return dataclasses.replace(sp, points=quat.rotate_vec(q, sp.points) + d,
+                               table_points=seg_pts, table_arc=arc)

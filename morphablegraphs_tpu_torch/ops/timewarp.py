@@ -171,3 +171,13 @@ def smooth_time_function_np(time_function, window: int = 15,
     interior = np.correlate(tf, kernel, mode="valid")
     return np.concatenate([head @ tf[:window], interior,
                            tail @ tf[-window:]])
+
+
+def z_transform(time_functions: torch.Tensor) -> torch.Tensor:
+    """The training-side inverse of the exp-sum warp: w(t) = ln(t'(t) -
+    t'(t-1)) with the implicit -1 shift prepended.  [..., F] monotone warps
+    -> [..., F] log-increment curves."""
+    shifted = time_functions + 1.0
+    prev = torch.cat([torch.zeros_like(shifted[..., :1]), shifted[..., :-1]],
+                     dim=-1)
+    return torch.log(torch.clamp(shifted - prev, min=1e-6))

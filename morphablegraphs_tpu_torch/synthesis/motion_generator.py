@@ -15,13 +15,18 @@ runs on the CUDA device unless given device="cpu" (the kernels' twins).
 Random draws come from a sampler hook, sampler(node_key, n) -> [n, L],
 called where the JAX package calls `sample_latent(self._next_key(), prim,
 n)`: once per planner option, once per constrained step (the pool), once
-per unconstrained step.  The default draws with `ops.gmm.sample` from a
-torch.Generator seeded with `seed` on the device; threefry's stream is
-not reproduced, so parity runs hand in the JAX package's draws.
+per unconstrained step.  With use_transition_model, a step whose previous
+node's edge carries a transition model draws from the mixture conditioned
+on the previous step's latent instead, as sampler(node_key, n, gmm=...)
+(the pool, or one latent in an unconstrained step), where the JAX package
+calls `predict_parameters(self._next_key(), ...)`; a sampler of two
+arguments serves every request without transition models.  The default
+draws with `ops.gmm.sample` from a torch.Generator seeded with `seed` on
+the device; threefry's stream is not reproduced, so parity runs hand in
+the JAX package's draws.
 
-What the port does not do raises NotImplementedError naming its ROADMAP
-item rather than being skipped: transition models (item 14) and
-cluster-tree search (item 15).
+constrained_sampling_mode="cluster_tree_search" raises
+NotImplementedError naming ROADMAP item 15.
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ from ..models import primitive as prim_mod
 from ..models.graph import (MotionStateGraph, NODE_TYPE_CYCLE_END,
                             NODE_TYPE_END, NODE_TYPE_SINGLE,
                             NODE_TYPE_STANDARD)
-from ..ops import align, spline_path, timewarp
+from ..ops import align, gmm as gmm_ops, spline_path, timewarp
 from ..utils import device as device_mod
 from ..utils.config import default_config
 from . import action_builder, generator
@@ -71,10 +76,14 @@ class MotionResult:
     stats: dict
 
 
-def _refuse(what: str, item: int):
-    raise NotImplementedError(
-        f"{what} is not ported to morphablegraphs_tpu_torch yet "
-        f"(ROADMAP item {item})")
+def check_sampling_mode(config: dict):
+    """Refuse constrained_sampling_mode="cluster_tree_search" (ROADMAP item
+    15): NotImplementedError, not a quiet fall back to GMM sampling."""
+    if config.get("constrained_sampling_mode",
+                  "random_discrete") == "cluster_tree_search":
+        raise NotImplementedError(
+            'constrained_sampling_mode="cluster_tree_search" is not ported '
+            "to morphablegraphs_tpu_torch yet (ROADMAP item 15)")
 
 
 class MotionGenerator:
@@ -97,6 +106,9 @@ class MotionGenerator:
         self._start_transform = None  # (q_y, delta) placing step one
         self._objective_evaluations = 0
         self._step_times: List[float] = []
+        # the last step's latent and node: the transition models' condition
+        self._prev_latent = None
+        self._prev_node_key = None
         from .grounding import SceneInterface
         self.scene_interface = SceneInterface()
 
@@ -106,31 +118,45 @@ class MotionGenerator:
                 self.device)
         return self._prims[node_key]
 
-    def _gmm_sampler(self, node_key, n: int) -> torch.Tensor:
+    def _gmm_sampler(self, node_key, n: int, gmm=None) -> torch.Tensor:
+        if gmm is not None:
+            return gmm_ops.sample(self.generator, gmm, n)
         return prim_mod.sample_latent(self.generator, self._prim(node_key),
                                       n)
 
-    def _draw(self, node_key, n: int) -> torch.Tensor:
-        return torch.as_tensor(self.sampler(node_key, n),
-                               dtype=torch.float32, device=self.device)
+    def _draw(self, node_key, n: int, gmm=None) -> torch.Tensor:
+        """n latents of node_key: from its mixture, or from `gmm` (a
+        transition model's conditioned mixture)."""
+        out = (self.sampler(node_key, n) if gmm is None
+               else self.sampler(node_key, n, gmm=gmm))
+        return torch.as_tensor(out, dtype=torch.float32, device=self.device)
 
-    def _check_config(self):
-        cfg = self.config
-        if cfg.get("use_transition_model"):
-            _refuse("use_transition_model (transition-model candidate "
-                    "pools)", 14)
-        if cfg.get("constrained_sampling_mode",
-                   "random_discrete") == "cluster_tree_search":
-            _refuse('constrained_sampling_mode="cluster_tree_search"', 15)
+    def _transition_gmm(self, node_key):
+        """The mixture over node_key's latent conditioned on the previous
+        step's latent, when use_transition_model is set and the previous
+        node's edge to node_key carries a model; else None."""
+        if not (self.config.get("use_transition_model")
+                and self._prev_latent is not None
+                and self._prev_node_key in self.graph.nodes):
+            return None
+        models = self.graph.nodes[self._prev_node_key].transition_models
+        if node_key not in models:
+            return None
+        from ..models import transition_model as tm
+        return tm.predict(models[node_key].to(self.device),
+                          torch.as_tensor(self._prev_latent,
+                                          device=self.device))
 
     # ------------------------------------------------------------------
     def generate_motion(self, mg_input: dict, complete_motion_vector: bool = True,
                         activate_joint_mapping: bool = False,
                         activate_coordinate_transform: bool = False,
                         scale_factor: float = 1.0) -> MotionResult:
-        self._check_config()
+        check_sampling_mode(self.config)
         t_start = time.time()
         self._step_times = []
+        self._prev_latent = None  # a fresh request: no transition context
+        self._prev_node_key = None
         # per action with collision-avoidance trajectories in the "ik"
         # mode: (trajectories, first step, end step), for _post_process
         self._ca_ik_spans = []
@@ -488,16 +514,15 @@ class MotionGenerator:
         """Select, refine and emit one step, and record it."""
         t_step = time.time()
         graph = self.graph
-        node = graph.nodes[node_key]
-        if node.cluster_tree is not None:
-            _refuse("a node's cluster tree as the explicit candidate pool",
-                    15)
         prim = self._prim(node_key)
         skel = graph.skeleton
         use_traj = acs.root_trajectory is not None
         window = self._smoothing_window()
         max_frames = _pad_frames(prim.n_canonical_frames)
         n_samples = int(self.config.get("n_random_samples", 100))
+        # with a transition model on the edge, the pool (or an
+        # unconstrained step's one latent) comes from its mixture
+        tm_gmm = self._transition_gmm(node_key)
         if use_traj:
             sc, loco, loco_flags = action_builder.build_step_constraints(
                 graph, acs, node_key, travelled, frames, is_last_step,
@@ -521,8 +546,8 @@ class MotionGenerator:
                 s, err, scd, new_frames, n_frames, new_arc = \
                     generator.generate_step(
                         skel, prim, scd, has_prev,
-                        self._draw(node_key, n_samples), p, travelled,
-                        max_frames, window, path=self._path(acs),
+                        self._draw(node_key, n_samples, tm_gmm), p,
+                        travelled, max_frames, window, path=self._path(acs),
                         loco=self._device_loco(loco), loco_flags=loco_flags,
                         **common)
                 self._count_constrained_step_evals()
@@ -544,16 +569,18 @@ class MotionGenerator:
                 s, err, scd, new_frames, n_frames, new_arc = \
                     generator.generate_step(
                         skel, prim, scd, has_prev,
-                        self._draw(node_key, n_samples), p, travelled,
-                        max_frames, window)
+                        self._draw(node_key, n_samples, tm_gmm), p,
+                        travelled, max_frames, window)
                 self._count_constrained_step_evals()
             else:
                 s, new_frames, n_frames, new_arc = \
                     generator.unconstrained_step(
-                        prim, self._draw(node_key, 1)[0], scd, has_prev,
-                        travelled, max_frames, window)
+                        prim, self._draw(node_key, 1, tm_gmm)[0], scd,
+                        has_prev, travelled, max_frames, window)
                 err = torch.zeros((), device=self.device)
         s_np = s.cpu().numpy()
+        self._prev_latent = s_np
+        self._prev_node_key = node_key
         err = float(err)
         n_frames = int(n_frames)
         new_frames = new_frames[:n_frames].cpu().numpy()

@@ -24,8 +24,8 @@ default draws from a torch.Generator seeded with `seed`; host noise (walk
 jitter, gesture noise) comes from np.random.default_rng(seed), as in the
 JAX package.
 
-A node's cluster tree under constrained_sampling_mode
-"cluster_tree_search" raises NotImplementedError naming ROADMAP item 15.
+constrained_sampling_mode="cluster_tree_search" in the config raises
+NotImplementedError naming ROADMAP item 15 when the planner is built.
 """
 
 from __future__ import annotations
@@ -48,6 +48,7 @@ from ..ops import quat as quat_ops
 from ..utils import device as device_mod
 from ..utils.config import default_config
 from . import generator, postprocess
+from .motion_generator import check_sampling_mode
 from .state_queue import MGStateQueue
 
 UPPER_BODY_JOINTS = skeleton_models.UPPER_BODY_JOINTS
@@ -168,6 +169,7 @@ class MGStatePlanner:
         # copy before overriding: mutating a shared config dict would
         # clobber other components' sample counts
         self.config = dict(config or default_config())
+        check_sampling_mode(self.config)
         self.config["n_random_samples"] = self.settings.n_samples
         frame_time = graph.skeleton.frame_time if graph.skeleton else 1.0 / 30
         self.state_queue = MGStateQueue(graph.skeleton, frame_time,
@@ -377,13 +379,6 @@ class MGStatePlanner:
             # takes a plain GMM sample
             s = self._draw(node_key, 1)[0]
         else:
-            if (node.cluster_tree is not None
-                    and self.config.get("constrained_sampling_mode")
-                    == "cluster_tree_search"):
-                raise NotImplementedError(
-                    "a node's cluster tree as the explicit candidate pool "
-                    "is not ported to morphablegraphs_tpu_torch yet "
-                    "(ROADMAP item 15)")
             s, _ = generator.generate_constrained_sample(
                 skel, prim_d, generator.device_constraints(sc, self.device),
                 self._draw(node_key, self.settings.n_samples),
@@ -788,8 +783,8 @@ class MGStatePlanner:
         controller at the current position, pull frames until the final
         target is within min_pfnn_target_distance, and split the stream into
         state-queue entries every min_pfnn_primitive_steps frames.  The
-        controller is the caller's object (the PFNN network is not part
-        of this package)."""
+        controller is the caller's object, e.g. a models/pfnn.PFNNWrapper
+        around a graph zip's network."""
         control_points = np.asarray(control_points, np.float64)
         cur = (np.asarray(pose_buffer[-1][:3], np.float64) if pose_buffer
                else np.zeros(3))

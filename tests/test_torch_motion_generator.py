@@ -158,8 +158,10 @@ def test_default_sampler_request_runs(walk_graphs):
 
 
 REFUSALS = {
+    # refused until transition models were ported; on a graph without
+    # models it changes nothing (pattern None: the request must run)
     "use_transition_model": (dict(use_transition_model=True),
-                             WALK_INPUT, "use_transition_model.*item 14"),
+                             WALK_INPUT, None),
     "cluster_tree_search": (
         dict(constrained_sampling_mode="cluster_tree_search"), WALK_INPUT,
         "cluster_tree_search.*item 15"),
@@ -168,24 +170,41 @@ REFUSALS = {
 
 @pytest.mark.parametrize("name", sorted(REFUSALS))
 def test_unported_options_are_refused(walk_graphs, name):
-    """The branches of the JAX request path the port does not have
-    (transition models, cluster-tree search) raise NotImplementedError
-    naming their ROADMAP item; none is skipped."""
+    """The branch of the JAX request path the port does not have
+    (cluster-tree search) raises NotImplementedError naming its ROADMAP
+    item; none is skipped.  use_transition_model, now ported, runs, and on
+    a graph without transition models gives the request without it."""
     overrides, mg_input, pattern = REFUSALS[name]
     cfg = _config(n_random_samples=4, lm_iterations=1, **overrides)
     gen = MotionGenerator(walk_graphs[1], cfg, device="cpu")
+    if pattern is None:
+        plain = MotionGenerator(walk_graphs[1], _config(
+            n_random_samples=4, lm_iterations=1), device="cpu")
+        np.testing.assert_array_equal(gen.generate_motion(mg_input).frames,
+                                      plain.generate_motion(mg_input).frames)
+        return
     with pytest.raises(NotImplementedError, match=pattern):
         gen.generate_motion(mg_input)
 
 
 def test_node_cluster_tree_is_refused(walk_graphs):
     """A node carrying a cluster tree (an explicit candidate pool in the
-    JAX package) is refused rather than sampled around."""
+    JAX package under cluster_tree_search) is refused in that mode, before
+    any step; under the default random_discrete the tree is not read, as
+    in JAX, and the request equals the one without it."""
     g_t = tp.request_graphs(synj.make_graph_dict(), synj.TEST_BVH)[1]
+    cfg = _config(n_random_samples=4, lm_iterations=1)
+    plain = MotionGenerator(g_t, cfg, device="cpu").generate_motion(
+        WALK_INPUT)
     g_t.nodes[("walk", "beginLeftStance")].cluster_tree = object()
-    gen = MotionGenerator(g_t, _config(n_random_samples=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="cluster tree.*item 15"):
+    gen = MotionGenerator(g_t, _config(
+        n_random_samples=4, constrained_sampling_mode="cluster_tree_search"),
+        device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match="cluster_tree_search.*item 15"):
         gen.generate_motion(WALK_INPUT)
+    res = MotionGenerator(g_t, cfg, device="cpu").generate_motion(WALK_INPUT)
+    np.testing.assert_array_equal(res.frames, plain.frames)
 
 
 def test_unknown_action_raises_constraint_error(walk_graphs):

@@ -689,18 +689,21 @@ def test_default_device_needs_a_card(walk_graphs):
 
 
 def test_cluster_tree_search_is_refused(walk_graphs):
-    """A node's cluster tree under cluster_tree_search (JAX scores the
-    tree's data instead of sampling) raises naming ROADMAP item 15; the
-    same node under random_discrete samples as JAX does."""
+    """constrained_sampling_mode="cluster_tree_search" in the config (JAX
+    scores a node's tree data instead of sampling) raises naming ROADMAP
+    item 15 when the planner is built; a node's tree under random_discrete
+    is not read, and the step samples as JAX does."""
     g_t = tp.request_graphs(synj.make_graph_dict(), synj.TEST_BVH)[1]
     g_t.nodes[("walk", "leftStance")].cluster_tree = object()
     cfg = _config(1)
     cfg["constrained_sampling_mode"] = "cluster_tree_search"
+    with pytest.raises(NotImplementedError,
+                       match="cluster_tree_search.*item 15"):
+        spt.MGStatePlanner(g_t, spt.MGStatePlanningSettings(n_samples=4),
+                           config=cfg, device="cpu")
+    cfg["constrained_sampling_mode"] = "random_discrete"
     p = spt.MGStatePlanner(g_t, spt.MGStatePlanningSettings(n_samples=4),
                            config=cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="cluster tree.*item 15"):
-        p.generate_step(("walk", "leftStance"), None, target_dir=[0, 1.0])
-    p.config["constrained_sampling_mode"] = "random_discrete"
     e = p.generate_step(("walk", "leftStance"), None, target_dir=[0, 1.0])
     assert np.all(np.isfinite(e.state.frames))
 

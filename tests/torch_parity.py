@@ -293,14 +293,33 @@ def jax_key_sampler(graph_j, seed: int):
     """The draws of the JAX MotionGenerator(seed=seed), replayed for the
     port's sampler hook: `_next_key` splits PRNGKey(seed) once per draw and
     each sub-key feeds one `sample_latent(sub, prim, n)`; the port calls
-    sampler(node_key, n) at the same points in the same order."""
+    sampler(node_key, n) at the same points in the same order.
+
+    With a transition model, the port passes the conditioned mixture,
+    sampler(node_key, n, gmm=...), where JAX calls
+    `tm.predict_parameters(self._next_key(), model, prev, n)`, i.e.
+    `gmm.sample(key, predict(model, prev), n)`: the replay samples the
+    port's mixture with JAX's key.  A constrained step (a pool, n > 1)
+    splits one key more before it: JAX evaluates generate_step's own
+    `_next_key()` argument first and, given candidates, draws nothing
+    with it."""
     from morphablegraphs_tpu.models import primitive as prj
+    from morphablegraphs_tpu.ops import gmm as gmm_j
     state = {"key": jax.random.PRNGKey(seed)}
 
-    def sampler(node_key, n):
+    def next_key():
         state["key"], sub = jax.random.split(state["key"])
-        return np.array(prj.sample_latent(
-            sub, graph_j.nodes[node_key].primitive, n))
+        return sub
+
+    def sampler(node_key, n, gmm=None):
+        if gmm is None:
+            return np.array(prj.sample_latent(
+                next_key(), graph_j.nodes[node_key].primitive, n))
+        if n > 1:
+            next_key()
+        return np.array(gmm_j.sample(next_key(), gmm_j.GMM(
+            *(jnp.asarray(getattr(gmm, f).cpu().numpy()) for f in (
+                "weights", "means", "cov_chol", "prec_chol"))), n))
     return sampler
 
 
