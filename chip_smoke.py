@@ -137,10 +137,28 @@ Phases, one line each (or a few):
      against the CPU and its time, and 100 frames of the planner's PFNN
      locomotion through PFNNWrapper; the request at one LM iteration on
      the card and the CPU with the same draws (phase 13's bounds).
-The checks of phases 3-8 and 13-16 run first, but their lines are printed
+ 17. construction and cluster-tree search through the command line (run
+     after phase 16): 100 seeded, time-warped BVH clips of the
+     reference-scale leftStance primitive trained by `cli train` with the
+     default config (a BIC scan over K = 1..40) on the card, each stage's
+     seconds (load, spatial alignment, DTW grids, host DP, fPCA, EM/BIC),
+     the model's n_basis, k_s, k_t and K, and the same training on the
+     CPU held against it (the fPCA fields, the mixture, the DTW's path
+     cost; the warp indices that differ counted); `cli cluster-trees` with
+     configs/space_partitioning.json (10,000 samples, 4 x 4 levels) for
+     every node of the reference-scale walk graph, the trees packed by
+     zip_writer and loaded by load_graph on the card (seconds per node,
+     the zip's size); `cli run` of phase 13's config-3 request under
+     configs/cluster_tree_search_algorithm.config, once warm and twice
+     timed: wall seconds, p50 step, each constrained step's pool of
+     10,000 tree rows and its ms, the launches of B2, B5 and the emit
+     kernel (each above 0) and their shapes, each held against its twin;
+     the request at one LM iteration on the card and the CPU with the
+     same trees and draws (node keys, chosen tree rows, phase 13's bounds).
+The checks of phases 3-8 and 13-17 run first, but their lines are printed
 after phase 11: a kernel's device time comes from a profiler trace, and a
 process that has taken one pays more host time per launch afterwards, so the
-traces wait until the host-timed phases (9-11, 13-16) are over.
+traces wait until the host-timed phases (9-11, 13-17) are over.
 Then a JSON line of per-kernel results (time, launches, error against the
 twin, the bound and the one-call library time where there is one; `ms` is
 the device time, `kernel_ms` the events around the wrapper), and as
@@ -1152,6 +1170,9 @@ def _host_sampler(graph, seed):
     gen = torch.Generator().manual_seed(seed)
 
     def sampler(key, n, gmm=None):
+        if n == 0:  # a cluster-tree step's key: nothing is drawn
+            return np.zeros((0, graph.nodes[key].primitive.n_latent),
+                            np.float32)
         if gmm is None:
             return prim_mod.sample_latent(gen, graph.nodes[key].primitive,
                                           n).numpy()
@@ -3053,6 +3074,390 @@ def phase_package(device, smi: str):
     return runs[-1][1], shapes, held, time.perf_counter() - t_phase
 
 
+# Phase 17: offline construction and cluster-tree search through the
+# command line.  TRAIN_CLIPS BVH clips (load_motion_data's default
+# max_count, the reference's) of the reference-scale leftStance primitive,
+# each a seeded draw back-projected on its own time warp, trained by `cli
+# train` with the default config (max_gmm_components 40: a BIC scan over K
+# = 1..40 on 100 rows) on the card and on the CPU; `cli cluster-trees` with
+# configs/space_partitioning.json (10,000 samples, 4 x 4 levels) for every
+# node of the reference-scale walk graph, the trees packed by zip_writer
+# and loaded by load_graph; `cli run` of phase 13's config-3 request under
+# configs/cluster_tree_search_algorithm.config (every constrained step
+# ranks its node's 10,000 tree rows with the exact evaluator, then the LM
+# on B2 and B5, the step on the emit kernel), once warm and CLUSTER_REPS
+# times timed; the same request on the CPU at one LM iteration.
+TRAIN_CLIPS = 100
+CLUSTER_REPS = 2
+CLUSTER_CONFIG = "configs/cluster_tree_search_algorithm.config"
+SPACE_PARTITIONING = "configs/space_partitioning.json"
+CLUSTER_SAMPLES = 10000  # SPACE_PARTITIONING's n_random_samples
+# the model trained on the card against the CPU's: float32 grids, fits and
+# z-transforms in both, the SVD and the EM (float64) on the host and the
+# card: the fPCA fields to 1e-4 of their scale, the mixture's weights and
+# means to 1e-3 (tests/test_torch_construct.py's bounds)
+TRAIN_RTOL, TRAIN_GMM_ATOL = 1e-4, 1e-3
+
+
+def _write_train_clips(folder, device):
+    """TRAIN_CLIPS BVH clips of the reference-scale leftStance primitive:
+    seeded draws back-projected with their time warps, the joint
+    quaternions normalized (BVH stores rotations) -> the skeleton."""
+    import torch
+    from morphablegraphs_tpu_torch.models import primitive as prim_mod
+    from morphablegraphs_tpu_torch.models import skeleton as sk
+    from morphablegraphs_tpu_torch.utils import synthetic
+    gd = synthetic.make_reference_scale_graph_dict()
+    prim = prim_mod.load_primitive_json(
+        gd["subgraphs"]["walk"]["nodes"]["leftStance"]["mm"], device=device)
+    skel = sk.load_bvh(synthetic.REF_BVH)[0]
+    gen = torch.Generator(device=device).manual_seed(17)
+    lat = prim_mod.sample_latent(gen, prim, TRAIN_CLIPS)
+    for i in range(TRAIN_CLIPS):
+        f, n, _ = prim_mod.back_project(prim, lat[i], 2 * 192, use_time=True)
+        f = f[: int(n)].cpu().numpy().astype(np.float64)
+        q = f[:, 3:].reshape(len(f), -1, 4)
+        f[:, 3:] = (q / np.linalg.norm(q, axis=-1, keepdims=True)).reshape(
+            len(f), -1)
+        sk.write_bvh(skel, f, str(pathlib.Path(folder) / f"clip{i:03d}.bvh"))
+    return skel
+
+
+def _train(folder, out, device):
+    """`cli train` on `device` -> (model JSON, {stage: seconds, and the
+    DTW's total path cost "dtw_cost"}, wall s, the warping functions)."""
+    import torch
+    from morphablegraphs_tpu_torch.construct import constructor
+    from morphablegraphs_tpu_torch.serve import cli
+    made, stages = [], {}
+    load, ctor = cli.load_motion_data, cli.MotionModelConstructor
+    warps = {}
+
+    def timed_load(*a, **kw):
+        t0 = time.perf_counter()
+        r = load(*a, **kw)
+        stages["load"] = time.perf_counter() - t0
+        return r
+
+    class Recorded(constructor.MotionModelConstructor):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+        def construct_model(self, *a, **kw):
+            r = super().construct_model(*a, **kw)
+            warps.update({k: list(v) for k, v in
+                          self._temporal_data.items()})
+            return r
+    cli.load_motion_data, cli.MotionModelConstructor = timed_load, Recorded
+    try:
+        t0 = time.perf_counter()
+        cli.main(["train", folder, "walk_leftStance", "--output", out,
+                  "--device", str(device)])
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        cli.load_motion_data, cli.MotionModelConstructor = load, ctor
+    stages.update(made[-1].timings, dtw_cost=made[-1].dtw_cost)
+    with open(out) as f:
+        return json.load(f), stages, wall, warps
+
+
+def _cluster_package(tmp, device):
+    """`cli cluster-trees` over the reference-scale walk graph's models
+    with configs/space_partitioning.json, the trees packed into a format-4
+    zip by zip_writer -> (zip path, seconds per node, its size in MB)."""
+    from morphablegraphs_tpu_torch.construct.space_partitioning import \
+        ClusterTree
+    from morphablegraphs_tpu_torch.models import skeleton as sk
+    from morphablegraphs_tpu_torch.models.zip_writer import write_graph_zip
+    from morphablegraphs_tpu_torch.serve import cli
+    from morphablegraphs_tpu_torch.utils import synthetic
+    gd = synthetic.make_reference_scale_graph_dict()
+    walk = gd["subgraphs"]["walk"]
+    mdir = pathlib.Path(tmp) / "models"
+    mdir.mkdir()
+    per_node = {}
+    for mp, node in walk["nodes"].items():
+        sub = mdir / mp
+        sub.mkdir()
+        (sub / f"walk_{mp}_mm.json").write_text(json.dumps(node["mm"]))
+        t0 = time.perf_counter()
+        cli.main(["cluster-trees", str(sub), "--config", SPACE_PARTITIONING,
+                  "--device", str(device)])
+        per_node[mp] = time.perf_counter() - t0
+    trees = {mp: ClusterTree.load(str(mdir / mp / f"walk_{mp}"),
+                                  device=device)
+             for mp in walk["nodes"]}
+    path = write_graph_zip(
+        str(pathlib.Path(tmp) / "cluster_walk.zip"),
+        sk.load_bvh(synthetic.REF_BVH)[0],
+        {"walk": {"nodes": {mp: n["mm"] for mp, n in walk["nodes"].items()},
+                  "info": walk["info"], "cluster_trees": trees}},
+        gd["transitions"], start_node=tuple(gd["startNode"]),
+        format_version=4.0)
+    return path, per_node, pathlib.Path(path).stat().st_size / 2 ** 20, \
+        trees
+
+
+class _PoolSpy:
+    """Wraps generator.score_pool: each call's rows, its argmin, its least
+    error and CUDA events around it (the pool's ms per step)."""
+
+    def __init__(self, device):
+        from morphablegraphs_tpu_torch.synthesis import generator
+        self.generator, self.orig = generator, generator.score_pool
+        self.calls, self.cuda = [], device is not None and str(
+            device).startswith("cuda")
+
+    def __enter__(self):
+        import torch
+
+        def spy(skel, prim, sc, pool, *a, **kw):
+            ev = None
+            if self.cuda:
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+            errors = self.orig(skel, prim, sc, pool, *a, **kw)
+            if ev is not None:
+                ev[1].record()
+            i = torch.argmin(errors)
+            self.calls.append((pool.shape[0], i, errors[i], ev))
+            return errors
+        self.generator.score_pool = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.generator.score_pool = self.orig
+        return False
+
+    def rows(self):
+        """[(rows, argmin, least error, ms or None)] after a synchronize."""
+        return [(n, int(i), float(e),
+                 ev[0].elapsed_time(ev[1]) if ev is not None else None)
+                for n, i, e, ev in self.calls]
+
+
+def phase_cluster(device, smi: str):
+    """Phase 17: train (card and CPU), cluster trees through the CLI, the
+    cluster-tree request through `cli run` (warm + CLUSTER_REPS timed, B2,
+    B5 and the emit kernel launched in each, each shape held against its
+    twin) and the same request on the CPU at one LM iteration.  ->
+    (launches of the last timed request, {kernel: {shape: launches}},
+    {kernel: [held results]}, the phase's seconds)."""
+    import tempfile
+
+    import torch
+    from morphablegraphs_tpu_torch.models import graph as graph_mod
+    from morphablegraphs_tpu_torch.ops import kernels
+    from morphablegraphs_tpu_torch.serve import cli
+    from morphablegraphs_tpu_torch.synthesis.motion_generator import \
+        MotionGenerator
+    from morphablegraphs_tpu_torch.utils.config import load_config
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp_p = pathlib.Path(tmp)
+        clips = tmp_p / "clips"
+        clips.mkdir()
+        t0 = time.perf_counter()
+        _write_train_clips(str(clips), device)
+        t_clips = time.perf_counter() - t0
+
+        # 1. train on the card, then on the CPU from the same files
+        kernels.reset_launch_counts()
+        m_g, st_g, wall_g, warps_g = _train(str(clips),
+                                            str(tmp_p / "gpu_mm.json"),
+                                            device)
+        train_launches = dict(kernels.launch_counts())
+        m_c, st_c, wall_c, warps_c = _train(str(clips),
+                                            str(tmp_p / "cpu_mm.json"), "cpu")
+        sp_g, sp_c = m_g["sspm"], m_c["sspm"]
+        k_g, k_c = len(m_g["gmm"]["weights"]), len(m_c["gmm"]["weights"])
+        warp_diff = sum(int(np.sum(np.asarray(warps_g[k])
+                                   != np.asarray(warps_c[k])))
+                        for k in warps_g)
+        shapes_ok = (k_g == k_c and sp_g["n_coeffs"] == sp_c["n_coeffs"]
+                     and len(sp_g["eigen"]) == len(sp_c["eigen"])
+                     and len(m_g["tspm"]["eigen"][0])
+                     == len(m_c["tspm"]["eigen"][0]))
+        gaps = {}
+        if shapes_ok:
+            for name, a, b in (
+                    ("spatial mean", sp_g["mean"], sp_c["mean"]),
+                    ("spatial eigen", sp_g["eigen"], sp_c["eigen"]),
+                    ("temporal mean", m_g["tspm"]["mean"],
+                     m_c["tspm"]["mean"]),
+                    ("temporal eigen", m_g["tspm"]["eigen"],
+                     m_c["tspm"]["eigen"])):
+                a, b = np.asarray(a), np.asarray(b)
+                gaps[name] = float(np.abs(a - b).max() / np.abs(b).max())
+            order_g = np.argsort(np.asarray(m_g["gmm"]["means"])[:, 0])
+            order_c = np.argsort(np.asarray(m_c["gmm"]["means"])[:, 0])
+            for f in ("weights", "means"):
+                gaps[f"gmm {f}"] = float(np.abs(
+                    np.asarray(m_g["gmm"][f])[order_g]
+                    - np.asarray(m_c["gmm"][f])[order_c]).max())
+        # the DTW's total path cost, the card's against the CPU's
+        cost_g, cost_c = st_g.pop("dtw_cost"), st_c.pop("dtw_cost")
+        gaps["dtw cost"] = abs(cost_g - cost_c) / abs(cost_c)
+        print(f"cluster train: {TRAIN_CLIPS} BVH clips of the "
+              f"reference-scale leftStance (D "
+              f"{3 + 4 * len(m_g['sspm']['animated_joints'])}) written in "
+              f"{t_clips:.2f} s; `cli train` on {device} ({smi}) "
+              f"{wall_g:.2f} s: " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in st_g.items())
+              + f" s; on the CPU {wall_c:.2f} s: " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in st_c.items())
+              + f" s; the model: n_basis {sp_g['n_coeffs']}, k_s "
+              f"{len(sp_g['eigen'])}, k_t {len(m_g['tspm']['eigen'][0])}, "
+              f"K {k_g} (CPU K {k_c}); port kernel launches in training "
+              f"{train_launches}; card vs CPU gaps {gaps} (tol fPCA "
+              f"{TRAIN_RTOL} of scale, GMM {TRAIN_GMM_ATOL}); warp indices "
+              f"that differ {warp_diff}", flush=True)
+        if not shapes_ok or any(
+                v > (TRAIN_GMM_ATOL if k.startswith("gmm") else TRAIN_RTOL)
+                for k, v in gaps.items()):
+            _fail("the model trained on the card disagrees with the CPU's")
+        for a, b in (("spatial mean", "mean"),):
+            if not np.all(np.isfinite(np.asarray(sp_g[b]))):
+                _fail(f"the trained {a} is not finite")
+
+        # 2. cluster trees through the CLI, packed and loaded on the card
+        zip_path, per_node, size_mb, trees = _cluster_package(tmp, device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph = graph_mod.load_graph(zip_path, device=device)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        graph_cpu = graph_mod.load_graph(zip_path, device="cpu")
+        for key, node in graph.nodes.items():
+            tree = node.cluster_tree
+            if tree is None or tree.data.shape[0] != CLUSTER_SAMPLES or \
+                    tree.device_data().device.type != \
+                    torch.device(device).type or \
+                    not np.array_equal(tree.data, trees[key[1]].data):
+                _fail(f"node {key}'s cluster tree did not load onto the "
+                      "card with its 10,000 samples")
+        print(f"cluster trees: `cli cluster-trees` with "
+              f"{SPACE_PARTITIONING} (10,000 samples, 4 x 4 levels) on "
+              f"{device}: seconds per node "
+              f"{ {k: round(v, 3) for k, v in per_node.items()} }; the zip "
+              f"{size_mb:.1f} MB; load_graph on {device} {t_load:.3f} s",
+              flush=True)
+
+        # 3. `cli run` of config 3's request under cluster-tree search
+        in_dir = tmp_p / "in"
+        in_dir.mkdir()
+        (in_dir / "request.json").write_text(json.dumps(REQUEST_CONFIG3))
+        results = []
+        gen_cls = cli.MotionGenerator
+
+        class Recorded(MotionGenerator):
+            def generate_motion(self, *a, **kw):
+                r = super().generate_motion(*a, **kw)
+                results.append(r)
+                return r
+        shapes = {k: {} for k in REQUEST_KERNELS}
+        walls, runs = [], []
+        cli.MotionGenerator = Recorded
+        try:
+            for rep in range(CLUSTER_REPS + 1):
+                saved = _record_shapes(shapes) if rep == 0 else {}
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                try:
+                    with _PoolSpy(device) as spy:
+                        cli.main(["run", zip_path, str(in_dir),
+                                  str(tmp_p / f"out{rep}"), "--config",
+                                  CLUSTER_CONFIG, "--device", str(device)])
+                        torch.cuda.synchronize()
+                finally:
+                    _restore_kernels(saved)
+                wall = time.perf_counter() - t0
+                counts = kernels.launch_counts()
+                res = results[-1]
+                pools = spy.rows()
+                if not np.all(np.isfinite(res.frames)) or \
+                        res.stats["n_steps"] < 2:
+                    _fail("the cluster-tree request: frames not finite or "
+                          "too few steps")
+                if any(counts[k] <= 0 for k in REQUEST_KERNELS):
+                    _fail("the cluster-tree request did not launch B2, B5 "
+                          f"and the emit kernel: {counts}")
+                if not pools or any(n != CLUSTER_SAMPLES for n, *_ in pools):
+                    _fail("a constrained step of the cluster-tree request "
+                          f"did not rank its tree's rows: {pools}")
+                if not (tmp_p / f"out{rep}" / "output.bvh").exists():
+                    _fail("`cli run` wrote no BVH")
+                if rep:
+                    walls.append(wall)
+                    runs.append((res, counts, pools))
+        finally:
+            cli.MotionGenerator = gen_cls
+        st = [r.stats for r, _, _ in runs]
+        pool_ms = [[None if ms is None else round(ms, 3) for *_, ms in p]
+               for _, _, p in runs]
+        print(f"cluster request (config 3 under {CLUSTER_CONFIG}, `cli run`)"
+              f" on {device} ({smi}): {CLUSTER_REPS} timed after a warm one "
+              f"(the load_graph of each included): wall s "
+              f"{[round(w, 4) for w in walls]}, p50 step latency s "
+              f"{[round(x['p50_step_latency'], 4) for x in st]}, steps "
+              f"{[x['n_steps'] for x in st]}, average_error "
+              f"{[round(x['average_error'], 3) for x in st]}; the pool "
+              f"(10,000 tree rows) scored per constrained step in ms (CUDA "
+              f"events around score_pool) {pool_ms}; launches per request "
+              f"of B2/B5/emit "
+              f"{[tuple(c[k] for k in REQUEST_KERNELS) for _, c, _ in runs]}"
+              f"; kernel shapes in the warm request (launches of each) "
+              + str({k: {str(s_): n_ for s_, n_ in v.items()}
+                     for k, v in shapes.items()}), flush=True)
+        held = _hold_shapes(graph.nodes[("walk", "leftStance")].primitive,
+                            device, shapes, {k: set() for k in shapes},
+                            "cluster", seed=42)
+
+    # the request at one LM iteration on the card and on the CPU
+    cfg1 = dict(load_config(CLUSTER_CONFIG), lm_iterations=1)
+    ref = {}
+    for dev, g_ in ((device, graph), ("cpu", graph_cpu)):
+        with _PoolSpy(dev) as spy:
+            t0 = time.perf_counter()
+            r = MotionGenerator(g_, cfg1, device=dev,
+                                sampler=_host_sampler(graph_cpu, 7)
+                                ).generate_motion(REQUEST_CONFIG3)
+            ref[dev] = (r, time.perf_counter() - t0, spy.rows())
+    (a, t_gpu, rows_a), (b, t_cpu, rows_b) = ref[device], ref["cpu"]
+    keys_ok = [s_.node_key for s_ in a.steps] == [s_.node_key
+                                                  for s_ in b.steps]
+    err_a = np.array([s_.error for s_ in a.steps])
+    err_b = np.array([s_.error for s_ in b.steps])
+    same_len = keys_ok and a.frames.shape == b.frames.shape
+    other_rows = sum(x[1] != y[1] for x, y in zip(rows_a, rows_b))
+    least = np.array([[x[2], y[2]] for x, y in zip(rows_a, rows_b)])
+    frame_err, flips = (_quat_frames_diff(a.frames, b.frames)
+                        if same_len else (float("inf"), -1))
+    print(f"cluster reference (1 LM iteration): GPU {t_gpu:.3f} s vs CPU "
+          f"{t_cpu:.3f} s, {len(a.steps)} steps, node keys equal={keys_ok}, "
+          f"{len(rows_a)} pools, {other_rows} with another chosen tree row, "
+          f"the chosen rows' errors max abs diff "
+          f"{float(np.abs(least[:, 0] - least[:, 1]).max()):.3e}, step "
+          f"errors max abs diff "
+          f"{float(np.abs(err_a - err_b).max()) if keys_ok else -1:.3e}, "
+          f"frames {a.frames.shape} max abs diff {frame_err:.3e} (tol "
+          f"{WALK_FRAMES_ATOL}; {flips} joint quaternions with the other "
+          f"sign)", flush=True)
+    if not same_len or len(rows_a) != len(rows_b) or np.any(
+            np.abs(least[:, 0] - least[:, 1])
+            > 0.05 + 1e-2 * np.abs(least[:, 1])) or np.any(
+            np.abs(err_a - err_b) > 0.05 + 1e-2 * np.abs(err_b)) \
+            or frame_err > WALK_FRAMES_ATOL:
+        _fail("the cluster-tree request: the GPU path disagrees with the "
+              "CPU path")
+    return runs[-1][1], shapes, held, time.perf_counter() - t_phase
+
+
 def _trace_summary(prof, device_type, prefix: str = "walk."):
     """(kernels [(name, device ms)], stages {walk.* name: [host ms, device
     busy ms, device span ms]}) of a torch.profiler trace, read from its raw
@@ -3224,6 +3629,9 @@ def main():
     package_counts, package_shapes, package_held, t16 = phase_package(
         device, smi)
     print(f"phase 16 seconds: {t16:.1f}", flush=True)
+    cluster_counts, cluster_shapes, cluster_held, t17 = phase_cluster(
+        device, smi)
+    print(f"phase 17 seconds: {t17:.1f}", flush=True)
     phase_random_reference(stacked)
     crowds = {name: phase_crowd(name, stacked, skel, device, smi)
               for name in CROWDS}
@@ -3298,7 +3706,13 @@ def main():
              "shapes": {str(list(k)): n
                         for k, n in package_shapes[name].items()},
              "held": package_held[name]}}
-            if name in package_shapes else {})}
+            if name in package_shapes else {}),
+         **({"cluster": {
+             "launches": cluster_counts[name],
+             "shapes": {str(list(k)): n
+                        for k, n in cluster_shapes[name].items()},
+             "held": cluster_held[name]}}
+            if name in cluster_shapes else {})}
         for name, source, line, counts in table]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -3,13 +3,14 @@ morphablegraphs_tpu.construct.gmm_trainer).
 
 The k-means++ seeding runs on the host with numpy's generator, so it picks
 the JAX package's centres for the same data and seed; the EM iterations run
-on the device of the data (sklearn GaussianMixture's full-covariance
-semantics) in float64, where the JAX package runs float32: a transition
-model's pairs have rank-deficient covariances, which only the 1e-6
-regularization keeps positive definite, and float32 rounding of a
-covariance (~1e-7 of its norm) exceeds it (on an H100 the float32 fits of
-the reference-scale edges lost a Cholesky factor and turned to NaN, where
-the same data on the CPU did not)."""
+on the device of a tensor's data, or for numpy data on `device` (the CUDA
+device unless the caller names another: `utils/device.resolve`), with
+sklearn GaussianMixture's full-covariance semantics, in float64 where the
+JAX package runs float32: a transition model's pairs have rank-deficient
+covariances, which only the 1e-6 regularization keeps positive definite,
+and float32 rounding of a covariance (~1e-7 of its norm) exceeds it (on an
+H100 the float32 fits of the reference-scale edges lost a Cholesky factor
+and turned to NaN, where the same data on the CPU did not)."""
 
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from ..ops import gmm as gmm_ops
+from ..utils import device as device_mod
 
 _REG_COVAR = 1e-6  # sklearn's default regularization
 # the JAX package's floor of a component's responsibility mass: 10 float32
@@ -71,11 +73,19 @@ def _em(x: torch.Tensor, w: torch.Tensor, mu: torch.Tensor,
     return w, mu, cov, ll
 
 
-def fit_gmm(x, k: int, seed: int = 0, n_iters: int = 100):
-    """One k-component mixture of the rows of x [N, D] (numpy: EM on the
-    CPU; a tensor: EM on its device; float64 either way).  -> (weights,
+def data_device(x, device=None) -> torch.device:
+    """Where the EM of x runs: a tensor's own device, else `device`
+    resolved (CUDA unless named; an error without a card)."""
+    if isinstance(x, torch.Tensor):
+        return x.device
+    return device_mod.resolve(device, "the GMM trainer")
+
+
+def fit_gmm(x, k: int, seed: int = 0, n_iters: int = 100, device=None):
+    """One k-component mixture of the rows of x [N, D] (a tensor: EM on
+    its device; numpy: on `device`; float64 either way).  -> (weights,
     means, covars as float64 numpy, the log-likelihood)."""
-    dev = x.device if isinstance(x, torch.Tensor) else torch.device("cpu")
+    dev = data_device(x, device)
     x_np = (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
             else np.asarray(x)).astype(np.float64)
     n, d = x_np.shape
@@ -97,14 +107,16 @@ def bic(ll: float, n: int, d: int, k: int) -> float:
     return -2.0 * ll + n_params * np.log(n)
 
 
-def train(x, max_k: int = 40, seed: int = 0) -> dict:
-    """Fit K = 1..max_k mixtures (seed + K each) and keep the lowest BIC.
-    -> the model-JSON fields {gmm_weights, gmm_means, gmm_covars}."""
+def train(x, max_k: int = 40, seed: int = 0, device=None) -> dict:
+    """Fit K = 1..max_k mixtures (seed + K each; on the device `fit_gmm`
+    picks) and keep the lowest BIC.  -> the model-JSON fields
+    {gmm_weights, gmm_means, gmm_covars}."""
+    dev = data_device(x, device)
     n, d = x.shape
     max_k = max(1, min(max_k, n - 1 if n > 1 else 1))
     best = None
     for k in range(1, max_k + 1):
-        w, mu, cov, ll = fit_gmm(x, k, seed=seed + k)
+        w, mu, cov, ll = fit_gmm(x, k, seed=seed + k, device=dev)
         b = bic(ll, n, d, k)
         if best is None or b < best[0]:
             best = (b, w, mu, cov)

@@ -39,10 +39,10 @@ class GraphNode:
         default_factory=dict)
     average_step_length: float = 0.0
     n_standard_transitions: int = 0
-    # a space-partitioning tree of candidate latents, which the JAX
-    # package searches under constrained_sampling_mode="cluster_tree_search"
-    # only; both entry points of the port refuse that mode (ROADMAP item
-    # 15), and the loader logs a package's trees without loading them
+    # a space-partitioning tree of candidate latents
+    # (construct/space_partitioning.ClusterTree, its data copied to the
+    # graph's device), searched under
+    # constrained_sampling_mode="cluster_tree_search"
     cluster_tree: Optional[object] = None
     # per-edge conditional-GMM transition models (models/transition_model)
     transition_models: Dict[Tuple[str, str], object] = dataclasses.field(
@@ -280,8 +280,10 @@ def build_graph_from_dict(graph_dict: dict,
     packaged statistics, every node's standard-transition count is
     recounted and the missing average step lengths are sampled from a
     torch.Generator seeded with stats_seed (its draws differ from the JAX
-    package's).  A node's cluster tree is not loaded: one message per such
-    node goes to the log (ROADMAP item 15)."""
+    package's).  A node's cluster tree loads as the JAX package loads it:
+    the reference's feature-tree JSON, the native `ClusterTree.save` pair
+    (the JSON and its `.data` sidecar) or a legacy pickled tree, its data
+    copied to `device`."""
     from ..utils.log import LOG_MODE_DEBUG, write_message_to_log
     graph = MotionStateGraph()
     graph.skeleton = skeleton
@@ -303,13 +305,33 @@ def build_graph_from_dict(graph_dict: dict,
                     st.get("average_step_length", 0.0))
                 graph.nodes[key].n_standard_transitions = int(
                     st.get("n_standard_transitions", 0))
-            if ("space_partition_json" in desc
-                    or "space_partition_pickle" in desc):
-                write_message_to_log(
-                    f"node {key} carries a cluster tree, which is not loaded:"
-                    " cluster-tree search is not ported to "
-                    "morphablegraphs_tpu_torch yet (ROADMAP item 15); the "
-                    "node samples its GMM")
+            tree_dev = "cpu" if device is None else device
+            if "space_partition_json" in desc:
+                from ..construct.space_partitioning import (
+                    ClusterTree, load_reference_feature_tree_json)
+                tj = desc["space_partition_json"]
+                if "data" in tj:  # the reference's FeatureClusterTree
+                    graph.nodes[key].cluster_tree = \
+                        load_reference_feature_tree_json(tj, device=tree_dev)
+                else:  # the native ClusterTree.save meta and .data sidecar
+                    sidecar = desc.get("space_partition_data")
+                    if sidecar is None:
+                        raise ValueError(
+                            f"cluster tree for node {key} has no 'data' key "
+                            "(reference FeatureClusterTree layout) and no "
+                            "'.data' sidecar next to its "
+                            "'*_cluster_tree.json' in the zip — the native "
+                            "ClusterTree.save layout needs both files")
+                    graph.nodes[key].cluster_tree = \
+                        ClusterTree.from_native_json(tj, sidecar,
+                                                     device=tree_dev)
+            elif "space_partition_pickle" in desc:
+                # legacy pickled trees (formatVersion < 4 / usePickle
+                # packages, reference zip_io.py:210-223)
+                from ..construct.space_partitioning import \
+                    load_reference_pickle_tree
+                graph.nodes[key].cluster_tree = load_reference_pickle_tree(
+                    desc["space_partition_pickle"], device=tree_dev)
             # the model files' keyframes feed the label maps
             kf = desc["mm"].get("keyframes", {})
             if kf:

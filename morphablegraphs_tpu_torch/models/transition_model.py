@@ -97,21 +97,23 @@ def from_joint(weights, means, covars, n_in: int,
 
 
 def fit_transition_model(x, y, n_components: int = 0, max_k: int = 8,
-                         seed: int = 0) -> ConditionalGMM:
+                         seed: int = 0, device=None) -> ConditionalGMM:
     """Fit from (previous latent, next latent) pairs x [N, Dx], y [N, Dy]
-    (tensors: EM and the model on their device; numpy: the CPU).
-    n_components=0 selects K by BIC up to max_k."""
+    (tensors: EM and the model on their device; numpy: on `device`, the
+    CUDA device unless named).  n_components=0 selects K by BIC up to
+    max_k."""
     from ..construct import gmm_trainer
+    dev = gmm_trainer.data_device(x, device)
     if isinstance(x, torch.Tensor):
-        joint, dev = torch.cat([x, y], dim=1), x.device
+        joint = torch.cat([x, y], dim=1)
     else:
         joint = np.concatenate([np.asarray(x, np.float64),
                                 np.asarray(y, np.float64)], axis=1)
-        dev = torch.device("cpu")
     if n_components > 0:
-        w, mu, cov, _ = gmm_trainer.fit_gmm(joint, n_components, seed=seed)
+        w, mu, cov, _ = gmm_trainer.fit_gmm(joint, n_components, seed=seed,
+                                            device=dev)
     else:
-        fields = gmm_trainer.train(joint, max_k=max_k, seed=seed)
+        fields = gmm_trainer.train(joint, max_k=max_k, seed=seed, device=dev)
         w, mu, cov = (fields["gmm_weights"], fields["gmm_means"],
                       fields["gmm_covars"])
     return from_joint(w, mu, cov, n_in=x.shape[1], device=dev)
@@ -203,5 +205,6 @@ def fit_transition_models_for_graph(graph, n_pairs: int = 2000,
             y_start = _boundary_pose(dst, ys, 0.0)
             match = _match_boundary_poses(x_end[:, 3:], y_start[:, 3:])
             node.transition_models[to_key] = fit_transition_model(
-                xs, ys[match], n_components=n_components, seed=seed)
+                xs, ys[match], n_components=n_components, seed=seed,
+                device=dev)
     return graph

@@ -30,7 +30,8 @@ def write_graph_zip(path: str, skeleton: Skeleton,
                     transition_models: Optional[list] = None):
     """actions: {action_name: {"nodes": {mp_name: model_json},
                                "info": meta_info_dict,
-                               "cluster_trees": {mp_name: tree_json}}}.
+                               "cluster_trees": {mp_name: a ClusterTree
+                                                 or a tree JSON dict}}}.
     transitions: {"action_mp": ["action2_mp2", ...]}.
     hand_pose_info / pfnn_data: optional sections in the reference layout
     (zip_io.py hand_poses/ + pfnn/weights|means float32 binaries).
@@ -66,8 +67,19 @@ def write_graph_zip(path: str, skeleton: Skeleton,
                 zf.writestr(f"{prefix}/meta_information.json",
                             json.dumps(desc["info"]))
             for mp_name, tree in desc.get("cluster_trees", {}).items():
-                zf.writestr(f"{prefix}/{action}_{mp_name}_cluster_tree.json",
-                            json.dumps(tree))
+                base = f"{prefix}/{action}_{mp_name}_cluster_tree"
+                if hasattr(tree, "data") and hasattr(tree, "root"):
+                    # a ClusterTree: its own save() layout, the JSON meta
+                    # and the raw float32 .data sidecar
+                    meta = {"n_subdivisions": tree.n_subdivisions,
+                            "max_level": tree.max_level,
+                            "n_dims": int(tree.data.shape[1]),
+                            "root": tree._node_to_json(tree.root)}
+                    zf.writestr(base + ".json", json.dumps(meta))
+                    zf.writestr(base + ".data",
+                                tree.data.astype(np.float32).tobytes())
+                else:  # the reference's FeatureClusterTree JSON dict
+                    zf.writestr(base + ".json", json.dumps(tree))
 
         if hand_pose_info is not None:
             info = {k: v for k, v in hand_pose_info.items()

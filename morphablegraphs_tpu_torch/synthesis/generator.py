@@ -184,6 +184,17 @@ def selection_params(skeleton: Skeleton, sc_host: compiled.StepConstraints,
         **families(skeleton, sc_host, use_dir))
 
 
+def cluster_pool(config: dict, node, device) -> Optional[torch.Tensor]:
+    """The node's cluster-tree data [N, L] on `device` when the config
+    selects constrained_sampling_mode="cluster_tree_search" and the node
+    has a tree (the JAX package then ranks the whole tree data with the
+    exact evaluator, `generator.py:377-380`); else None."""
+    if (config.get("constrained_sampling_mode", "random_discrete")
+            != "cluster_tree_search" or node.cluster_tree is None):
+        return None
+    return node.cluster_tree.device_data(device)
+
+
 def generate_constrained_sample(skeleton: Skeleton, prim: MotionPrimitive,
                                 sc: compiled.StepConstraints,
                                 pool: torch.Tensor, p: dict):

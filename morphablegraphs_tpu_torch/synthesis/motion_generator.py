@@ -25,8 +25,13 @@ draws with `ops.gmm.sample` from a torch.Generator seeded with `seed` on
 the device; threefry's stream is not reproduced, so parity runs hand in
 the JAX package's draws.
 
-constrained_sampling_mode="cluster_tree_search" raises
-NotImplementedError naming ROADMAP item 15.
+Under constrained_sampling_mode="cluster_tree_search" a constrained
+step's pool is its node's cluster-tree data (10,000 latents of a
+reference tree, kept on the device by the tree), after a transition
+model's draws and before the mixture's, as in the JAX package; there the
+JAX package takes a key and draws nothing, and the port calls
+sampler(node_key, 0), whose result it does not read.  A node without a
+tree samples its mixture.
 """
 
 from __future__ import annotations
@@ -76,16 +81,6 @@ class MotionResult:
     stats: dict
 
 
-def check_sampling_mode(config: dict):
-    """Refuse constrained_sampling_mode="cluster_tree_search" (ROADMAP item
-    15): NotImplementedError, not a quiet fall back to GMM sampling."""
-    if config.get("constrained_sampling_mode",
-                  "random_discrete") == "cluster_tree_search":
-        raise NotImplementedError(
-            'constrained_sampling_mode="cluster_tree_search" is not ported '
-            "to morphablegraphs_tpu_torch yet (ROADMAP item 15)")
-
-
 class MotionGenerator:
     """MotionGenerator(graph, config=None, seed=0, device=None,
     sampler=None).generate_motion(mg_input) -> MotionResult."""
@@ -119,6 +114,9 @@ class MotionGenerator:
         return self._prims[node_key]
 
     def _gmm_sampler(self, node_key, n: int, gmm=None) -> torch.Tensor:
+        if n == 0:  # a cluster-tree step's key: nothing is drawn
+            return torch.empty((0, self._prim(node_key).n_latent),
+                               device=self.device)
         if gmm is not None:
             return gmm_ops.sample(self.generator, gmm, n)
         return prim_mod.sample_latent(self.generator, self._prim(node_key),
@@ -130,6 +128,19 @@ class MotionGenerator:
         out = (self.sampler(node_key, n) if gmm is None
                else self.sampler(node_key, n, gmm=gmm))
         return torch.as_tensor(out, dtype=torch.float32, device=self.device)
+
+    def _pool(self, node_key, n: int, tm_gmm) -> torch.Tensor:
+        """A constrained step's candidates, in the JAX package's order: n
+        draws of a transition model's conditioned mixture, else the node's
+        cluster-tree data under cluster_tree_search, else n draws of the
+        node's mixture."""
+        if tm_gmm is None:
+            tree_pool = generator.cluster_pool(
+                self.config, self.graph.nodes[node_key], self.device)
+            if tree_pool is not None:
+                self._draw(node_key, 0)
+                return tree_pool
+        return self._draw(node_key, n, tm_gmm)
 
     def _transition_gmm(self, node_key):
         """The mixture over node_key's latent conditioned on the previous
@@ -152,7 +163,6 @@ class MotionGenerator:
                         activate_joint_mapping: bool = False,
                         activate_coordinate_transform: bool = False,
                         scale_factor: float = 1.0) -> MotionResult:
-        check_sampling_mode(self.config)
         t_start = time.time()
         self._step_times = []
         self._prev_latent = None  # a fresh request: no transition context
@@ -546,7 +556,7 @@ class MotionGenerator:
                 s, err, scd, new_frames, n_frames, new_arc = \
                     generator.generate_step(
                         skel, prim, scd, has_prev,
-                        self._draw(node_key, n_samples, tm_gmm), p,
+                        self._pool(node_key, n_samples, tm_gmm), p,
                         travelled, max_frames, window, path=self._path(acs),
                         loco=self._device_loco(loco), loco_flags=loco_flags,
                         **common)
@@ -569,7 +579,7 @@ class MotionGenerator:
                 s, err, scd, new_frames, n_frames, new_arc = \
                     generator.generate_step(
                         skel, prim, scd, has_prev,
-                        self._draw(node_key, n_samples, tm_gmm), p,
+                        self._pool(node_key, n_samples, tm_gmm), p,
                         travelled, max_frames, window)
                 self._count_constrained_step_evals()
             else:

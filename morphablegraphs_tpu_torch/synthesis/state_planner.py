@@ -24,8 +24,11 @@ default draws from a torch.Generator seeded with `seed`; host noise (walk
 jitter, gesture noise) comes from np.random.default_rng(seed), as in the
 JAX package.
 
-constrained_sampling_mode="cluster_tree_search" in the config raises
-NotImplementedError naming ROADMAP item 15 when the planner is built.
+Under constrained_sampling_mode="cluster_tree_search" a constrained
+step's pool is its node's cluster-tree data; the JAX package takes a key
+there and draws nothing, and the planner calls sampler(node_key, 0),
+whose result it does not read.  A node without a tree samples its
+mixture.
 """
 
 from __future__ import annotations
@@ -48,7 +51,6 @@ from ..ops import quat as quat_ops
 from ..utils import device as device_mod
 from ..utils.config import default_config
 from . import generator, postprocess
-from .motion_generator import check_sampling_mode
 from .state_queue import MGStateQueue
 
 UPPER_BODY_JOINTS = skeleton_models.UPPER_BODY_JOINTS
@@ -169,7 +171,6 @@ class MGStatePlanner:
         # copy before overriding: mutating a shared config dict would
         # clobber other components' sample counts
         self.config = dict(config or default_config())
-        check_sampling_mode(self.config)
         self.config["n_random_samples"] = self.settings.n_samples
         frame_time = graph.skeleton.frame_time if graph.skeleton else 1.0 / 30
         self.state_queue = MGStateQueue(graph.skeleton, frame_time,
@@ -198,6 +199,9 @@ class MGStatePlanner:
         return self._prims[node_key]
 
     def _gmm_sampler(self, node_key, n: int) -> torch.Tensor:
+        if n == 0:  # a cluster-tree step's key: nothing is drawn
+            return torch.empty((0, self._prim(node_key).n_latent),
+                               device=self.device)
         return prim_mod.sample_latent(self.generator, self._prim(node_key),
                                       n)
 
@@ -379,10 +383,16 @@ class MGStatePlanner:
             # takes a plain GMM sample
             s = self._draw(node_key, 1)[0]
         else:
+            pool = generator.cluster_pool(self.config,
+                                          self.graph.nodes[node_key],
+                                          self.device)
+            if pool is None:
+                pool = self._draw(node_key, self.settings.n_samples)
+            else:
+                self._draw(node_key, 0)
             s, _ = generator.generate_constrained_sample(
                 skel, prim_d, generator.device_constraints(sc, self.device),
-                self._draw(node_key, self.settings.n_samples),
-                generator.selection_params(skel, sc, self.config))
+                pool, generator.selection_params(skel, sc, self.config))
 
         frames, n, _ = prim_mod.back_project(
             prim_d, s, max_frames=_pad(prim.n_canonical_frames),

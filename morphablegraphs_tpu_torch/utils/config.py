@@ -9,6 +9,7 @@ files (examples/config/*_algorithm.config) load unchanged.
 from __future__ import annotations
 
 import copy
+import json
 
 
 DEFAULT_ALGORITHM_CONFIG = {
@@ -254,3 +255,51 @@ INERT_KEYS = {k: v for k, v in INERT_KEYS.items() if v is not None}
 
 def default_config() -> dict:
     return copy.deepcopy(DEFAULT_ALGORITHM_CONFIG)
+
+
+def _lookup(d: dict, dotted: str):
+    cur = d
+    for part in dotted.split("."):
+        if not isinstance(cur, dict) or part not in cur:
+            return None, False
+        cur = cur[part]
+    return cur, True
+
+
+def warn_inert_keys(preset: dict, source: str = "config") -> list:
+    """Log every accepted-but-inert key (INERT_KEYS) that a preset sets to
+    a value other than its default.  -> the (dotted key, disposition)
+    pairs that fired."""
+    from .log import write_message_to_log
+    fired = []
+    for dotted, why in INERT_KEYS.items():
+        val, present = _lookup(preset, dotted)
+        if not present:
+            continue
+        default, _ = _lookup(DEFAULT_ALGORITHM_CONFIG, dotted)
+        if val != default:
+            fired.append((dotted, why))
+            write_message_to_log(
+                f"{source}: '{dotted}' = {val!r} is accepted but has no "
+                f"effect ({why})")
+    return fired
+
+
+def load_config(path: str) -> dict:
+    """A preset file (the reference's `*_algorithm.config` JSON) merged over
+    the defaults, nested dicts key by key (reference mg_rest_interface.py
+    `load_algorithm_settings`); the inert keys it sets are logged."""
+    cfg = default_config()
+    with open(path) as f:
+        preset = json.load(f)
+    warn_inert_keys(preset, source=path)
+    _merge(cfg, preset)
+    return cfg
+
+
+def _merge(dst: dict, src: dict):
+    for k, v in src.items():
+        if isinstance(v, dict) and isinstance(dst.get(k), dict):
+            _merge(dst[k], v)
+        else:
+            dst[k] = v

@@ -2,8 +2,9 @@
 written by either package's zip_writer (format versions 1-4, underscore
 action names, packaged statistics, transition models, hand poses, a pfnn/
 section, skeleton.json) loaded by both `load_graph`s; random walks on the
-JAX generator's replayed draws; and the cluster trees of ROADMAP item 15,
-which the port's loader logs and its planner refuses to search.
+JAX generator's replayed draws; and the cluster trees (native, reference
+JSON and pickled), which both entry points search under
+cluster_tree_search.
 
 Node keys, node types, edges, statistics, joint weights and the skeleton
 compare exactly, and so do the primitives' tensors (both cast the same
@@ -268,13 +269,14 @@ def test_random_walk_matches_jax():
 
 def _tree_graph_dict(tmp_path, kind):
     """make_graph_dict with a cluster tree on leftStance: the pair
-    ClusterTree.save writes (made by the JAX package), or a pickled tree's
-    bytes."""
+    ClusterTree.save writes (made by the JAX package), or a legacy pickled
+    tree over latents of the primitive's width (built as
+    tests/test_graph.py builds one)."""
     gd = synj.make_graph_dict()
     node = gd["subgraphs"]["walk"]["nodes"]["leftStance"]
+    prim = gj.build_graph_from_dict(gd).nodes[
+        ("walk", "leftStance")].primitive
     if kind == "native":
-        prim = gj.build_graph_from_dict(gd).nodes[
-            ("walk", "leftStance")].primitive
         tree = build_cluster_tree_for_primitive(
             jax.random.PRNGKey(0), prim, n_samples=64, n_subdivisions=2,
             max_level=2)
@@ -285,46 +287,80 @@ def _tree_graph_dict(tmp_path, kind):
         with open(prefix + "_cluster_tree.data", "rb") as f:
             node["space_partition_data"] = f.read()
     else:
-        node["space_partition_pickle"] = b"\x80\x02N."
+        node["space_partition_pickle"], _ = tp.reference_pickle_tree(
+            np.random.default_rng(4), n=64, dim=prim.n_latent)
     return gd
 
 
-def test_planner_refuses_cluster_tree_search_on_a_packaged_tree(tmp_path):
-    """A graph dict whose leftStance carries a ClusterTree.save pair, into
-    the port's planner with constrained_sampling_mode set to
-    cluster_tree_search: refused (ROADMAP item 15), not sampled around."""
-    gd = _tree_graph_dict(tmp_path, "native")
-    assert gj.build_graph_from_dict(gd).nodes[
-        ("walk", "leftStance")].cluster_tree is not None
-    g = gt.build_graph_from_dict(gd)
-    g.skeleton = skt.load_bvh(synj.TEST_BVH)[0]
+def _cluster_config():
     cfg = default_config()
-    cfg["constrained_sampling_mode"] = "cluster_tree_search"
-    with pytest.raises(NotImplementedError, match="item 15"):
-        spt.MGStatePlanner(g, config=cfg, device="cpu")
+    cfg.update(constrained_sampling_mode="cluster_tree_search",
+               n_random_samples=4, lm_iterations=1)
+    return cfg
+
+
+def _pool_sizes(monkeypatch):
+    """The row count of every pool the port's generator scores."""
+    from morphablegraphs_tpu_torch.synthesis import generator
+    sizes = []
+    score = generator.score_pool
+
+    def spy(skel, prim, sc, pool, *a, **kw):
+        sizes.append(pool.shape[0])
+        return score(skel, prim, sc, pool, *a, **kw)
+    monkeypatch.setattr(generator, "score_pool", spy)
+    return sizes
+
+
+def test_planner_refuses_cluster_tree_search_on_a_packaged_tree(
+        tmp_path, monkeypatch):
+    """A graph dict whose leftStance carries a ClusterTree.save pair: the
+    port loads JAX's tree, and the planner under cluster_tree_search
+    scores its 64 rows (it refused the mode until ROADMAP item 15 was
+    ported)."""
+    gd = _tree_graph_dict(tmp_path, "native")
+    key = ("walk", "leftStance")
+    g = gt.build_graph_from_dict(gd)
+    tp.assert_trees_equal(g.nodes[key].cluster_tree,
+                          gj.build_graph_from_dict(gd).nodes[key]
+                          .cluster_tree)
+    g.skeleton = skt.load_bvh(synj.TEST_BVH)[0]
+    sizes = _pool_sizes(monkeypatch)
+    p = spt.MGStatePlanner(g, spt.MGStatePlanningSettings(n_samples=4),
+                           config=_cluster_config(), device="cpu")
+    e = p.generate_step(key, None, target_dir=[0, 1.0])
+    assert sizes == [64] and np.all(np.isfinite(e.state.frames))
 
 
 @pytest.mark.parametrize("kind", ["native", "pickle"])
-def test_tree_dict_loads_logs_and_serves(tmp_path, caplog, kind):
-    """The same dict under the default random_discrete mode loads, logs
-    one item-15 message for the node with the tree, and serves a request
-    and a planner step."""
+def test_tree_dict_loads_logs_and_serves(tmp_path, caplog, monkeypatch,
+                                         kind):
+    """The native pair and a real pickled tree load equal to the JAX
+    loader's trees, with no message (the loader logged and dropped them
+    before ROADMAP item 15), and both entry points search them under
+    cluster_tree_search: the request's leftStance steps and a planner step
+    score the tree's rows, the other nodes 4 draws."""
     gd = _tree_graph_dict(tmp_path, kind)
+    key = ("walk", "leftStance")
     with caplog.at_level(logging.INFO, logger="morphablegraphs_tpu"):
         g = gt.build_graph_from_dict(gd)
-    msgs = [r.getMessage() for r in caplog.records
-            if "item 15" in r.getMessage()]
-    assert len(msgs) == 1 and "leftStance" in msgs[0]
-    assert g.nodes[("walk", "leftStance")].cluster_tree is None
+    assert "cluster tree" not in caplog.text
+    tree = g.nodes[key].cluster_tree
+    tp.assert_trees_equal(tree, gj.build_graph_from_dict(gd).nodes[key]
+                          .cluster_tree)
+    assert tree.data.shape == (64, g.nodes[key].primitive.n_latent)
     g.skeleton = skt.load_bvh(synj.TEST_BVH)[0]
-    cfg = default_config()
-    cfg.update(n_random_samples=4, lm_iterations=1)
-    res = MotionGenerator(g, cfg, device="cpu").generate_motion(WALK_INPUT)
+    sizes = _pool_sizes(monkeypatch)
+    res = MotionGenerator(g, _cluster_config(), device="cpu").generate_motion(
+        WALK_INPUT)
     assert res.stats["n_steps"] >= 2 and np.all(np.isfinite(res.frames))
+    n_tree_steps = sum(s.node_key == key for s in res.steps)
+    assert sizes.count(64) == n_tree_steps > 0
+    assert set(sizes) <= {4, 64}
     p = spt.MGStatePlanner(g, spt.MGStatePlanningSettings(n_samples=4),
-                           config=cfg, device="cpu")
-    e = p.generate_step(("walk", "leftStance"), None, target_dir=[0, 1.0])
-    assert np.all(np.isfinite(e.state.frames))
+                           config=_cluster_config(), device="cpu")
+    e = p.generate_step(key, None, target_dir=[0, 1.0])
+    assert sizes[-1] == 64 and np.all(np.isfinite(e.state.frames))
 
 
 def test_transition_model_entries_with_unknown_nodes_are_skipped(caplog):

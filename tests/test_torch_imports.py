@@ -1,5 +1,5 @@
-"""The PyTorch port stands without JAX: it imports none of jax, flax, optax
-or the JAX package, and builds no kernel at import time."""
+"""The PyTorch port stands without JAX: it imports none of jax, flax, optax,
+sklearn or the JAX package, and builds no kernel at import time."""
 
 import pathlib
 import re
@@ -19,16 +19,17 @@ MODULES = sorted(
 
 def test_port_imports_without_jax():
     """Every module imports in a fresh interpreter where importing jax,
-    flax, optax or morphablegraphs_tpu fails."""
+    flax, optax, sklearn or morphablegraphs_tpu fails."""
     code = (
         "import sys\n"
-        "for m in ('jax', 'flax', 'optax', 'morphablegraphs_tpu'):\n"
+        "for m in ('jax', 'flax', 'optax', 'sklearn', "
+        "'morphablegraphs_tpu'):\n"
         "    sys.modules[m] = None\n"
         "import importlib\n"
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'optax', 'morphablegraphs_tpu') "
+        "('jax', 'flax', 'optax', 'sklearn', 'morphablegraphs_tpu') "
         "and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
         "print('OK', len(sys.modules))\n")
@@ -40,7 +41,7 @@ def test_port_imports_without_jax():
 
 def test_port_sources_name_no_jax():
     pattern = re.compile(
-        r"^\s*(import|from)\s+(jax|flax|optax|morphablegraphs_tpu)\b",
+        r"^\s*(import|from)\s+(jax|flax|optax|sklearn|morphablegraphs_tpu)\b",
         re.MULTILINE)
     offenders = [str(p) for p in PKG.rglob("*.py")
                  if pattern.search(p.read_text())]

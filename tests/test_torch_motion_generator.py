@@ -158,22 +158,24 @@ def test_default_sampler_request_runs(walk_graphs):
 
 
 REFUSALS = {
-    # refused until transition models were ported; on a graph without
-    # models it changes nothing (pattern None: the request must run)
+    # refused until transition models and cluster trees were ported; on
+    # a graph without models or trees they change nothing (pattern None:
+    # the request must run)
     "use_transition_model": (dict(use_transition_model=True),
                              WALK_INPUT, None),
     "cluster_tree_search": (
         dict(constrained_sampling_mode="cluster_tree_search"), WALK_INPUT,
-        "cluster_tree_search.*item 15"),
+        None),
 }
 
 
 @pytest.mark.parametrize("name", sorted(REFUSALS))
 def test_unported_options_are_refused(walk_graphs, name):
-    """The branch of the JAX request path the port does not have
-    (cluster-tree search) raises NotImplementedError naming its ROADMAP
-    item; none is skipped.  use_transition_model, now ported, runs, and on
-    a graph without transition models gives the request without it."""
+    """A branch of the JAX request path the port does not have would raise
+    NotImplementedError naming its ROADMAP item; none is left.
+    use_transition_model and cluster_tree_search, now ported, run, and on
+    a graph without transition models or trees give the request without
+    them."""
     overrides, mg_input, pattern = REFUSALS[name]
     cfg = _config(n_random_samples=4, lm_iterations=1, **overrides)
     gen = MotionGenerator(walk_graphs[1], cfg, device="cpu")
@@ -189,20 +191,30 @@ def test_unported_options_are_refused(walk_graphs, name):
 
 def test_node_cluster_tree_is_refused(walk_graphs):
     """A node carrying a cluster tree (an explicit candidate pool in the
-    JAX package under cluster_tree_search) is refused in that mode, before
-    any step; under the default random_discrete the tree is not read, as
-    in JAX, and the request equals the one without it."""
+    JAX package under cluster_tree_search; refused until ROADMAP item 15
+    was ported) is searched in that mode: without the LM every step on it
+    is one of the tree's rows; under the default random_discrete the tree
+    is not read, as in JAX, and the request equals the one without it."""
+    from morphablegraphs_tpu_torch.construct.space_partitioning import \
+        build_cluster_tree_for_primitive
     g_t = tp.request_graphs(synj.make_graph_dict(), synj.TEST_BVH)[1]
     cfg = _config(n_random_samples=4, lm_iterations=1)
     plain = MotionGenerator(g_t, cfg, device="cpu").generate_motion(
         WALK_INPUT)
-    g_t.nodes[("walk", "beginLeftStance")].cluster_tree = object()
-    gen = MotionGenerator(g_t, _config(
-        n_random_samples=4, constrained_sampling_mode="cluster_tree_search"),
-        device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="cluster_tree_search.*item 15"):
-        gen.generate_motion(WALK_INPUT)
+    key = ("walk", "beginLeftStance")
+    tree = build_cluster_tree_for_primitive(
+        torch.Generator().manual_seed(0), g_t.nodes[key].primitive,
+        n_samples=50, max_level=2)
+    g_t.nodes[key].cluster_tree = tree
+    res = MotionGenerator(g_t, _config(
+        n_random_samples=4, constrained_sampling_mode="cluster_tree_search",
+        local_optimization_mode="none"), device="cpu").generate_motion(
+        WALK_INPUT)
+    on_tree = [s for s in res.steps if s.node_key == key]
+    assert on_tree and np.all(np.isfinite(res.frames))
+    for s in on_tree:
+        assert np.any(np.all(tree.data == np.asarray(
+            s.parameters, np.float32), axis=1))
     res = MotionGenerator(g_t, cfg, device="cpu").generate_motion(WALK_INPUT)
     np.testing.assert_array_equal(res.frames, plain.frames)
 

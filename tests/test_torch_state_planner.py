@@ -688,24 +688,42 @@ def test_default_device_needs_a_card(walk_graphs):
         spt.MGStateQueue(walk_graphs[1].skeleton, 1 / 30)
 
 
-def test_cluster_tree_search_is_refused(walk_graphs):
+def test_cluster_tree_search_is_refused(walk_graphs, monkeypatch):
     """constrained_sampling_mode="cluster_tree_search" in the config (JAX
-    scores a node's tree data instead of sampling) raises naming ROADMAP
-    item 15 when the planner is built; a node's tree under random_discrete
-    is not read, and the step samples as JAX does."""
+    scores a node's tree data instead of sampling; the planner refused the
+    mode until ROADMAP item 15 was ported): a constrained step on a node
+    with a tree scores the tree's rows; under random_discrete the tree is
+    not read, and the step equals the step without a tree."""
+    from morphablegraphs_tpu_torch.construct.space_partitioning import \
+        build_cluster_tree_for_primitive
+    from morphablegraphs_tpu_torch.synthesis import generator
     g_t = tp.request_graphs(synj.make_graph_dict(), synj.TEST_BVH)[1]
-    g_t.nodes[("walk", "leftStance")].cluster_tree = object()
+    key = ("walk", "leftStance")
     cfg = _config(1)
-    cfg["constrained_sampling_mode"] = "cluster_tree_search"
-    with pytest.raises(NotImplementedError,
-                       match="cluster_tree_search.*item 15"):
-        spt.MGStatePlanner(g_t, spt.MGStatePlanningSettings(n_samples=4),
-                           config=cfg, device="cpu")
-    cfg["constrained_sampling_mode"] = "random_discrete"
-    p = spt.MGStatePlanner(g_t, spt.MGStatePlanningSettings(n_samples=4),
-                           config=cfg, device="cpu")
-    e = p.generate_step(("walk", "leftStance"), None, target_dir=[0, 1.0])
+    step = dict(target_dir=[0, 1.0])
+
+    def planner(config):
+        return spt.MGStatePlanner(g_t, spt.MGStatePlanningSettings(
+            n_samples=4), config=config, seed=3, device="cpu")
+    plain = planner(cfg).generate_step(key, None, **step)
+    tree = build_cluster_tree_for_primitive(
+        torch.Generator().manual_seed(0), g_t.nodes[key].primitive,
+        n_samples=50, max_level=2)
+    g_t.nodes[key].cluster_tree = tree
+    pools = []
+    score = generator.score_pool
+
+    def spy(skel, prim, sc, pool, *a, **kw):
+        pools.append(pool)
+        return score(skel, prim, sc, pool, *a, **kw)
+    monkeypatch.setattr(generator, "score_pool", spy)
+    e = planner(dict(cfg, constrained_sampling_mode="cluster_tree_search")
+                ).generate_step(key, None, **step)
+    assert len(pools) == 1 and pools[0] is tree.device_data("cpu")
     assert np.all(np.isfinite(e.state.frames))
+    e = planner(cfg).generate_step(key, None, **step)
+    assert pools[-1].shape[0] == 4
+    np.testing.assert_array_equal(e.state.frames, plain.state.frames)
 
 
 def test_start_stop_streams_the_same_states(action_graphs):

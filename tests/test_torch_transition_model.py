@@ -64,7 +64,7 @@ def test_fit_gmm_matches_jax(k):
     x = _clusters(3)
     w_j, mu_j, cov_j, ll_j = gtj.fit_gmm(x, k, seed=k)
     for data in (x, torch.as_tensor(x, dtype=torch.float32)):
-        w_t, mu_t, cov_t, ll_t = gtt.fit_gmm(data, k, seed=k)
+        w_t, mu_t, cov_t, ll_t = gtt.fit_gmm(data, k, seed=k, device="cpu")
         np.testing.assert_allclose(ll_t, ll_j, rtol=1e-5)
         if k < 3:  # k = 3 splits a cluster: hold the likelihood only
             np.testing.assert_allclose(w_t, w_j, atol=1e-3)
@@ -77,7 +77,7 @@ def test_train_selects_the_jax_k():
     x = np.concatenate([rng.multivariate_normal([4, 0], np.eye(2) * 0.2, 100),
                         rng.multivariate_normal([-4, 0], np.eye(2) * 0.2,
                                                 100)])
-    m_t, m_j = gtt.train(x, max_k=5), gtj.train(x, max_k=5)
+    m_t, m_j = gtt.train(x, max_k=5, device="cpu"), gtj.train(x, max_k=5)
     assert len(m_t["gmm_weights"]) == len(m_j["gmm_weights"]) == 2
     np.testing.assert_allclose(np.sort(m_t["gmm_weights"]),
                                np.sort(m_j["gmm_weights"]), atol=1e-3)
@@ -140,7 +140,8 @@ def test_fit_transition_model_matches_jax(n_components):
     y = x @ rng.standard_normal((2, 3)).T + 0.05 * rng.standard_normal(
         (800, 2)) + 1.0
     m_j = tmj.fit_transition_model(x, y, n_components=n_components, max_k=3)
-    m_t = tmt.fit_transition_model(x, y, n_components=n_components, max_k=3)
+    m_t = tmt.fit_transition_model(x, y, n_components=n_components, max_k=3,
+                                    device="cpu")
     assert m_t.n_components == m_j.n_components
     for q in rng.standard_normal((3, 3)).astype(np.float32):
         p_t = tmt.predict(m_t, torch.as_tensor(q))
@@ -234,7 +235,7 @@ def test_fit_models_for_graph_follows_jax(graphs):
         assert len(np.unique(match)) < 50
         joint = np.concatenate([xs, ys[match]], axis=1).astype(np.float64)
         w, mu, cov, ll = _np_em(joint, 2, seed=0)
-        w_t, mu_t, cov_t, ll_t = gtt.fit_gmm(joint, 2, seed=0)
+        w_t, mu_t, cov_t, ll_t = gtt.fit_gmm(joint, 2, seed=0, device="cpu")
         np.testing.assert_allclose(ll_t, ll, rtol=1e-9)
         for a, b in ((w_t, w), (mu_t, mu), (cov_t, cov)):
             np.testing.assert_allclose(a, b, atol=1e-6)

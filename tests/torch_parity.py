@@ -302,7 +302,9 @@ def jax_key_sampler(graph_j, seed: int):
     port's mixture with JAX's key.  A constrained step (a pool, n > 1)
     splits one key more before it: JAX evaluates generate_step's own
     `_next_key()` argument first and, given candidates, draws nothing
-    with it."""
+    with it.  A cluster-tree step's pool is the node's tree data: the
+    port calls sampler(node_key, 0) where JAX takes that key, and the
+    replay takes it without drawing."""
     from morphablegraphs_tpu.models import primitive as prj
     from morphablegraphs_tpu.ops import gmm as gmm_j
     state = {"key": jax.random.PRNGKey(seed)}
@@ -312,6 +314,10 @@ def jax_key_sampler(graph_j, seed: int):
         return sub
 
     def sampler(node_key, n, gmm=None):
+        if n == 0:
+            next_key()
+            return np.zeros((0, graph_j.nodes[node_key].primitive.n_latent),
+                            np.float32)
         if gmm is None:
             return np.array(prj.sample_latent(
                 next_key(), graph_j.nodes[node_key].primitive, n))
@@ -414,3 +420,101 @@ def release_jax_executables():
     yield
     jax.clear_caches()
     gc.collect()
+
+
+def reference_pickle_tree(rng, n: int = 64, dim: int = 5):
+    """A pickled stub of the reference's ClusterTree object graph under the
+    reference's module paths (morphablegraphs.space_partitioning.*), made
+    without the reference package as tests/test_graph.py makes it: fake
+    modules are registered only while pickling.  Two inner nodes whose
+    indices are None, each over one KDTreeWrapper leaf that stores raw
+    point lists.  -> (payload bytes, data [n, dim] float64)."""
+    import pickle
+    import sys
+    import types
+
+    data = rng.standard_normal((n, dim))
+    names = ["morphablegraphs", "morphablegraphs.space_partitioning"] + [
+        f"morphablegraphs.space_partitioning.{m}" for m in (
+            "cluster_tree", "cluster_tree_node", "kdtree_wrapper_node",
+            "kdtree")]
+    mods = {name: types.ModuleType(name) for name in names}
+
+    def make_cls(mod_name, cls_name):
+        cls = type(cls_name, (object,), {"__module__": mod_name})
+        setattr(mods[mod_name], cls_name, cls)
+        return cls
+
+    sp = "morphablegraphs.space_partitioning."
+    ct_cls = make_cls(sp + "cluster_tree", "ClusterTree")
+    ctn_cls = make_cls(sp + "cluster_tree_node", "ClusterTreeNode")
+    kdw_cls = make_cls(sp + "kdtree_wrapper_node", "KDTreeWrapper")
+    kdt_cls = make_cls(sp + "kdtree", "KDTree")
+
+    def kd_wrapper(indices):
+        w = kdw_cls.__new__(kdw_cls)
+        t = kdt_cls.__new__(kdt_cls)
+        t.data = data[indices].tolist()
+        t.root = None
+        w.kdtree, w.dim, w.type = t, dim, "kd_tree_wrapper"
+        return w
+
+    def ctn(indices, clusters, leaf, depth):
+        node = ctn_cls.__new__(ctn_cls)
+        node.id, node.clusters, node.leaf = "x", clusters, leaf
+        node.mean = data[indices].mean(axis=0)
+        node.type = "leaf" if leaf else "inner"
+        node.depth = depth
+        node.indices = None
+        return node
+
+    half = n // 2
+    left = ctn(np.arange(half), [kd_wrapper(np.arange(half))], True, 1)
+    right = ctn(np.arange(half, n), [kd_wrapper(np.arange(half, n))], True,
+                1)
+    tree = ct_cls.__new__(ct_cls)
+    tree.data = data
+    tree.root = ctn(np.arange(n), [left, right], False, 0)
+    tree.n_subdivisions, tree.max_level = 2, 2
+    sys.modules.update(mods)
+    try:
+        payload = pickle.dumps(tree, protocol=2)
+    finally:
+        for k in mods:
+            sys.modules.pop(k, None)
+    return payload, data
+
+
+def assert_trees_equal(a, b):
+    """Two ClusterTrees (either package's): settings, data and every node's
+    mean and indices exactly."""
+    assert (a.n_subdivisions, a.max_level) == (b.n_subdivisions,
+                                               b.max_level)
+    np.testing.assert_array_equal(np.asarray(a.data), np.asarray(b.data))
+
+    def walk(x, y):
+        np.testing.assert_array_equal(x.mean, y.mean)
+        np.testing.assert_array_equal(x.indices, y.indices)
+        assert len(x.children) == len(y.children)
+        for cx, cy in zip(x.children, y.children):
+            walk(cx, cy)
+    walk(a.root, b.root)
+
+
+def assert_model_json_close(a: dict, b: dict, gmm_keys):
+    """Two model JSONs: the same keys and values, float arrays to 1e-4
+    relative, the keys in gmm_keys left out (at any depth)."""
+    assert a.keys() == b.keys()
+    for k in a:
+        if k in gmm_keys:
+            continue
+        x, y = a[k], b[k]
+        if isinstance(x, dict):
+            assert_model_json_close(x, y, gmm_keys)
+        elif isinstance(x, (list, float)) and np.asarray(y).dtype.kind == "f":
+            x, y = np.asarray(x), np.asarray(y)
+            np.testing.assert_allclose(x, y, rtol=1e-4,
+                                       atol=1e-4 * max(np.abs(y).max(), 1e-3),
+                                       err_msg=k)
+        else:
+            assert x == y, k
