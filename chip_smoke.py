@@ -155,10 +155,32 @@ Phases, one line each (or a few):
      kernel (each above 0) and their shapes, each held against its twin;
      the request at one LM iteration on the card and the CPU with the
      same trees and draws (node keys, chosen tree rows, phase 13's bounds).
-The checks of phases 3-8 and 13-17 run first, but their lines are printed
-after phase 11: a kernel's device time comes from a profiler trace, and a
+ 18. the service edge and the process group (run after phase 11): a
+     server thread over rest.make_app(MGContext(graph, cuda)) on
+     127.0.0.1 answers over HTTP, each call followed by its direct call on
+     a second context with the same seed: /run_morphablegraphs with config
+     3's request (warm + 2 timed); /run_morphablegraphs_batch with phase
+     9's 8 trajectory requests and phase 13's keyframe request (the 8 come
+     back batched, the ninth not; warm + 2); /set_configuration to phase
+     14's "timed" config and a batch through the rebuilt generator;
+     /set_height_map with a plain height grid (the scene's heights checked
+     at the texels) and phase 14's timed request (grounding on) over it:
+     every answer's frames, parsed back from its BVH, within the BVH
+     round trip of the direct call's; the wall seconds of both and their
+     difference (the service's own cost); B1, B2, B5 and the emit kernel
+     launched per endpoint, each recorded shape held against its twin.
+     Then the serving crowd over a world-size-1 NCCL group (a HashStore)
+     against the direct call, and over two gloo ranks spawned on the card
+     (4 characters each) with a 20-clip DTW of phase 17's clips split
+     over them, against the one-process results (frames within 1e-5, node
+     ids and warp indices identical); meanwhile `cli serve` of phase 16's
+     zip in its own process answers config 3's request, /get_skeleton and
+     a bad body (400).  Phase 12's profiles add the batch endpoint's
+     direct call.
+The checks of phases 3-8 and 13-17 run first (18 after 11), but their
+kernel lines are printed after phase 18: a kernel's device time comes from a profiler trace, and a
 process that has taken one pays more host time per launch afterwards, so the
-traces wait until the host-timed phases (9-11, 13-17) are over.
+traces wait until the host-timed phases (9-11, 13-18) are over.
 Then a JSON line of per-kernel results (time, launches, error against the
 twin, the bound and the one-call library time where there is one; `ms` is
 the device time, `kernel_ms` the events around the wrapper), and as
@@ -173,6 +195,7 @@ import pathlib
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1974,22 +1997,28 @@ def phase_planner(graph, device, smi: str):
 
 
 _KERNEL_OF = {"chol_solve": "chol_solve", "gmm_nll": "gmm_scores",
-              "emit_frames": "emit_frames"}
+              "emit_frames": "emit_frames",
+              "score_locomotion_candidates": "score_locomotion_candidates"}
 # the shape key of each wrapper's call: B2 [C, n, n]; B5 (rows, mixtures);
-# the emit kernel (C, frames, has_prev, seam window)
-_SHAPE_OF = {"chol_solve": lambda a, g: tuple(a.shape),
+# the emit kernel (C, frames, has_prev, seam window); B1 (C, candidates,
+# table rows)
+_SHAPE_OF = {"score_locomotion_candidates": lambda mop, alphas, table, cfg:
+             (alphas.shape[0], alphas.shape[1], table.shape[1]),
+             "chol_solve": lambda a, g: tuple(a.shape),
              "gmm_nll": lambda x, w, *r: (x.shape[0], w.shape[0]),
              "emit_frames": lambda *a: (a[0].shape[0], a[5].shape[-1],
                                         bool(a[8]), int(a[9]))}
 
 
 def _record_shapes(shapes):
-    """Wrap kernels.chol_solve, gmm_nll and emit_frames so that each call
-    counts its shape in shapes[kernel name] -> the wrappers' originals,
-    for _restore_kernels."""
+    """Wrap the wrappers of the kernels named in `shapes` (of B1, B2,
+    B5 and the emit kernel) so that each call counts its shape in
+    shapes[kernel name] -> the wrappers' originals, for _restore_kernels."""
     from morphablegraphs_tpu_torch.ops import kernels
     saved = {}
     for name, key_of in _SHAPE_OF.items():
+        if _KERNEL_OF[name] not in shapes:
+            continue
         orig = saved[name] = getattr(kernels, name)
         seen = shapes[_KERNEL_OF[name]]
 
@@ -2213,9 +2242,7 @@ def phase_serve(graph, device):
         return sharded(devices, *args, **kw)
 
     parallel.constrained_crowd_sharded = counting
-    reqs = [_traj_request(x, z) for x, z in
-            [(20, 100), (-20, 100), (0, 120), (40, 90), (-40, 90),
-             (10, 140), (-10, 60), (30, 150)]]
+    reqs = _serving_requests()
     batchable, _, parsed = bg.split_batchable(reqs)
     if batchable != list(range(len(reqs))):
         _fail(f"serving: requests not batchable: {batchable}")
@@ -2820,7 +2847,7 @@ def _pfnn_codec(d):
     return encode, decode
 
 
-def phase_package(device, smi: str):
+def phase_package(device, smi: str, zip_copy=None):
     """Phase 16: build the package (graph, transition-model fits on the
     card, pfnn/ section) and load it with load_graph on the card and on
     the CPU; the config-3 request with use_transition_model on the card,
@@ -2850,6 +2877,9 @@ def phase_package(device, smi: str):
     with tempfile.TemporaryDirectory() as tmp:
         path = str(pathlib.Path(tmp) / "packaged_walk.zip")
         build_s, clip, n_models = _build_package(path, device)
+        if zip_copy is not None:  # phase 18 serves it
+            import shutil
+            shutil.copy(path, zip_copy)
         size_mb = pathlib.Path(path).stat().st_size / 2 ** 20
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3099,10 +3129,11 @@ CLUSTER_SAMPLES = 10000  # SPACE_PARTITIONING's n_random_samples
 TRAIN_RTOL, TRAIN_GMM_ATOL = 1e-4, 1e-3
 
 
-def _write_train_clips(folder, device):
-    """TRAIN_CLIPS BVH clips of the reference-scale leftStance primitive:
-    seeded draws back-projected with their time warps, the joint
-    quaternions normalized (BVH stores rotations) -> the skeleton."""
+def _train_clip_frames(device, n_clips: int = TRAIN_CLIPS):
+    """The first n_clips of TRAIN_CLIPS clips of the reference-scale
+    leftStance primitive: seeded draws back-projected with their time
+    warps, the joint quaternions normalized (BVH stores rotations) ->
+    (the skeleton, {name: frames float64})."""
     import torch
     from morphablegraphs_tpu_torch.models import primitive as prim_mod
     from morphablegraphs_tpu_torch.models import skeleton as sk
@@ -3113,13 +3144,23 @@ def _write_train_clips(folder, device):
     skel = sk.load_bvh(synthetic.REF_BVH)[0]
     gen = torch.Generator(device=device).manual_seed(17)
     lat = prim_mod.sample_latent(gen, prim, TRAIN_CLIPS)
-    for i in range(TRAIN_CLIPS):
+    clips = {}
+    for i in range(n_clips):
         f, n, _ = prim_mod.back_project(prim, lat[i], 2 * 192, use_time=True)
         f = f[: int(n)].cpu().numpy().astype(np.float64)
         q = f[:, 3:].reshape(len(f), -1, 4)
         f[:, 3:] = (q / np.linalg.norm(q, axis=-1, keepdims=True)).reshape(
             len(f), -1)
-        sk.write_bvh(skel, f, str(pathlib.Path(folder) / f"clip{i:03d}.bvh"))
+        clips[f"clip{i:03d}"] = f
+    return skel, clips
+
+
+def _write_train_clips(folder, device):
+    """The TRAIN_CLIPS clips as BVH files -> the skeleton."""
+    from morphablegraphs_tpu_torch.models import skeleton as sk
+    skel, clips = _train_clip_frames(device)
+    for name, f in clips.items():
+        sk.write_bvh(skel, f, str(pathlib.Path(folder) / f"{name}.bvh"))
     return skel
 
 
@@ -3458,9 +3499,540 @@ def phase_cluster(device, smi: str):
     return runs[-1][1], shapes, held, time.perf_counter() - t_phase
 
 
-def _trace_summary(prof, device_type, prefix: str = "walk."):
+# Phase 18: the service edge (serve/rest.py) and the process group
+SERVICE_REPS = 2  # timed calls of each endpoint, after one that warms
+SERVICE_KERNELS = ("score_locomotion_candidates",) + REQUEST_KERNELS
+# an endpoint's frames and the direct call's, both parsed back from BVH
+# text (6 decimals of a cm and of a degree): phase 16's round-trip bound
+SERVICE_BVH_ATOL = BVH_ROOT_ATOL
+# the /set_height_map terrain: world heights on a TERRAIN_N x TERRAIN_N
+# grid of TERRAIN_SCALE-cm texels from TERRAIN_ORIGIN (x, z)
+TERRAIN_ORIGIN, TERRAIN_SCALE, TERRAIN_N = (-150.0, -100.0), 10.0, 31
+GROUP_RANKS = 2  # gloo ranks spawned on the one card
+GROUP_CLIPS = 20  # phase 17's first clips, the two-rank DTW's input
+GROUP_FRAMES_ATOL = 1e-5  # a rank's rows against the one-process crowd
+SERVER_START_S = 300  # the CLI server's start, its first request included
+
+
+def _serving_requests():
+    """Phase 9's 8 trajectory requests."""
+    return [_traj_request(x, z) for x, z in
+            [(20, 100), (-20, 100), (0, 120), (40, 90), (-40, 90),
+             (10, 140), (-10, 60), (30, 150)]]
+
+
+def _service_config():
+    """Config 3's (phase 13), capped at phase 13's keyframe request's 4
+    steps (config 3's request takes 4)."""
+    cfg = _requests()["config3"][1]
+    cfg["debug_max_step"] = REQUEST_KF_MAX_STEP
+    return cfg
+
+
+def _terrain():
+    """[z rows, x columns] world heights of the /set_height_map grid."""
+    x = TERRAIN_ORIGIN[0] + TERRAIN_SCALE * np.arange(TERRAIN_N)
+    z = TERRAIN_ORIGIN[1] + TERRAIN_SCALE * np.arange(TERRAIN_N)
+    return 3.0 * np.sin(x[None, :] / 40.0) + 0.02 * z[:, None]
+
+
+def _http(base: str, method: str, path: str, body=None, timeout=600):
+    """(status, body bytes) of one request to a local server, past any
+    proxy the environment names."""
+    import urllib.error
+    import urllib.request
+    data = None if body is None else (
+        body if isinstance(body, bytes) else json.dumps(body).encode())
+    req = urllib.request.Request(base + path, data=data, method=method)
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    try:
+        with opener.open(req, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _bvh_frames(text: str):
+    from morphablegraphs_tpu_torch.models import skeleton as sk
+    skel, euler = sk.load_bvh(text)
+    return sk.bvh_to_quat_frames(skel, euler)
+
+
+def _bvh_diff(a: str, b: str):
+    """_quat_frames_diff of two BVH texts' frames (inf: other lengths)."""
+    fa, fb = _bvh_frames(a), _bvh_frames(b)
+    if fa.shape != fb.shape:
+        return float("inf"), -1
+    return _quat_frames_diff(fa, fb)
+
+
+def _direct_batch(ref, reqs):
+    """The batch endpoint's work as direct calls on the context `ref`:
+    split_batchable, one generate_batch, MGContext.run for the others ->
+    the endpoint's answer {"results": [...]}."""
+    from morphablegraphs_tpu_torch.models.skeleton import write_bvh
+    bg = ref.batched_generator()
+    ids, fallback, parsed = bg.split_batchable(reqs)
+    frames = bg.generate_batch([reqs[i] for i in ids],
+                               parsed_list=[parsed[i] for i in ids])
+    out = [None] * len(reqs)
+    for i, f in zip(ids, frames):
+        out[i] = {"bvh": write_bvh(ref.graph.skeleton, f), "batched": True}
+    for i in fallback:
+        out[i] = {**ref.run(reqs[i]), "batched": False}
+    return {"results": out}
+
+
+def _service_calls():
+    """[(endpoint, route, body, direct(ref ctx) -> the direct call's
+    answer in the endpoint's form, reps)], in the order they are sent: the
+    direct call runs on a second context that receives the same calls in
+    the same order, so both contexts' generators draw the same samples.
+    The batch after /set_configuration holds the 8 trajectory requests
+    only: the keyframe request under phase 14's timed config would add
+    its global passes to the phase's seconds."""
+    from morphablegraphs_tpu_torch.serve import rest
+    batch = {"requests": _serving_requests() + [REQUEST_KEYFRAME]}
+    trajectories = {"requests": _serving_requests()}
+    timed_cfg = _options_requests()["timed"][1]
+    terrain = {"height_map": _terrain().tolist(),
+               "origin": list(TERRAIN_ORIGIN), "scale": TERRAIN_SCALE}
+
+    def run(mg_input):
+        return lambda ref: ref.run(mg_input)
+
+    def direct_batch(body):
+        return lambda ref: _direct_batch(ref, body["requests"])
+
+    def configure(ref):
+        return json.loads(rest.set_configuration(
+            ref, json.dumps(timed_cfg).encode())[2])
+
+    def height_map(ref):
+        return json.loads(rest.set_height_map_route(
+            ref, json.dumps(terrain).encode())[2])
+    return [
+        ("run", "/run_morphablegraphs", REQUEST_CONFIG3, run(REQUEST_CONFIG3),
+         1 + SERVICE_REPS),
+        ("batch", "/run_morphablegraphs_batch", batch, direct_batch(batch),
+         1 + SERVICE_REPS),
+        ("set_configuration", "/set_configuration", timed_cfg, configure, 1),
+        ("batch_reconfigured", "/run_morphablegraphs_batch", trajectories,
+         direct_batch(trajectories), 1),
+        ("set_height_map", "/set_height_map", terrain, height_map, 1),
+        ("run_terrain", "/run_morphablegraphs", REQUEST_TIMED,
+         run(REQUEST_TIMED), 1)]
+
+
+def _hold_answer(name, got: dict, want: dict, min_frames: int = 30):
+    """An endpoint's JSON answer against the direct call's: every BVH
+    within SERVICE_BVH_ATOL once parsed back, the other fields equal.
+    -> the worst BVH difference."""
+    worst = 0.0
+    pairs = ([(got, want)] if "results" not in want
+             else list(zip(got["results"], want["results"])))
+    if "results" in want and len(got["results"]) != len(want["results"]):
+        _fail(f"service {name}: {len(got['results'])} results for "
+              f"{len(want['results'])} requests")
+    for g, w in pairs:
+        if g.keys() != w.keys() or any(g[k] != w[k] for k in g
+                                       if k != "bvh"):
+            _fail(f"service {name}: the answer's fields differ from the "
+                  f"direct call's: {sorted(g)} vs {sorted(w)}")
+        if "bvh" in w:
+            d, _ = _bvh_diff(g["bvh"], w["bvh"])
+            worst = max(worst, d)
+            if not d <= SERVICE_BVH_ATOL or len(_bvh_frames(g["bvh"])) \
+                    <= min_frames:
+                _fail(f"service {name}: the endpoint's frames differ from "
+                      f"the direct call's by {d:.3e} (tol "
+                      f"{SERVICE_BVH_ATOL}) or are too few")
+    return worst
+
+
+def phase_service_endpoints(graph, stacked, device, smi: str, held_b1):
+    """Phase 18's in-process part: a server thread over make_app(MGContext(
+    graph, device)) on 127.0.0.1 takes _service_calls over HTTP, each
+    followed by its direct call on a second context; each endpoint's
+    answer is held against the direct call's; the kernels' launches are
+    counted per endpoint and their shapes recorded, then held against
+    their twins.  -> (launches {endpoint: counts}, shapes, held, the
+    profile's run (the batch endpoint's direct call) and its median wall
+    seconds)."""
+    import copy
+    import threading
+
+    import torch
+    from morphablegraphs_tpu_torch.ops import kernels
+    from morphablegraphs_tpu_torch.serve import rest
+    cfg = _service_config()
+    ctx = rest.MGContext(graph, cfg, device=device)
+    ref = rest.MGContext(graph, copy.deepcopy(cfg), device=device)
+    server = rest.make_server(rest.make_app(ctx), "127.0.0.1", 0)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    shapes = {k: {} for k in SERVICE_KERNELS}
+    launches, batch_wall = {}, None
+    try:
+        for name, route, body, direct, reps in _service_calls():
+            walls, direct_walls, worst = [], [], 0.0
+            for rep in range(reps):
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                saved = _record_shapes(shapes)
+                t0 = time.perf_counter()
+                status, payload = _http(base, "POST", route, body)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                _restore_kernels(saved)
+                counts = launches[name] = kernels.launch_counts()
+                t0 = time.perf_counter()
+                want = direct(ref)
+                torch.cuda.synchronize()
+                direct_walls.append(time.perf_counter() - t0)
+                if status != 200:
+                    _fail(f"service {name}: {route} answered {status}: "
+                          f"{payload[:300]!r}")
+                worst = max(worst, _hold_answer(name, json.loads(payload),
+                                                want))
+            if name == "batch":
+                flags = [r["batched"] for r in json.loads(payload)["results"]]
+                if flags != [True] * 8 + [False]:
+                    _fail(f"service batch: the batched flags are {flags}, "
+                          "not 8 batched and the keyframe request not")
+            if name == "set_configuration" and ctx._batched_generator \
+                    is not None:
+                _fail("/set_configuration kept the cached BatchedGenerator")
+            if name == "set_height_map":
+                _check_terrain(ctx)
+            kinds = (SERVICE_KERNELS if name.startswith("batch") else
+                     REQUEST_KERNELS if name.startswith("run") else ())
+            if any(counts[k] <= 0 for k in kinds):
+                _fail(f"service {name} did not launch {kinds}: {counts}")
+            timed_e, timed_d = walls[-SERVICE_REPS:], direct_walls[
+                -SERVICE_REPS:]
+            print(f"service {name} ({route}) on {device} ({smi}): "
+                  f"{len(walls)} call(s){', the first warms' if reps > 1 else ''}:"
+                  f" endpoint wall s {[round(w, 4) for w in walls]}, direct "
+                  f"call wall s {[round(w, 4) for w in direct_walls]}; the "
+                  f"service's own cost (median endpoint - median direct, "
+                  f"timed calls) "
+                  f"{float(np.median(timed_e) - np.median(timed_d)):.4f} s;"
+                  f" answers within {worst:.2e} of the direct call's; "
+                  f"launches of B1/B2/B5/emit "
+                  f"{tuple(counts[k] for k in SERVICE_KERNELS)}", flush=True)
+            if name == "batch":
+                batch_wall = float(np.median(timed_d))
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    print("service kernel shapes (launches of each over all endpoint calls):"
+          f" {json.dumps({k: {str(s): n for s, n in v.items()} for k, v in shapes.items()})}",
+          flush=True)
+    prim = graph.nodes[("walk", "leftStance")].primitive.to(device)
+    held = _hold_shapes(prim, device, shapes,
+                        {k: set() for k in REQUEST_KERNELS}, "service",
+                        seed=43)
+    held["score_locomotion_candidates"] = _hold_b1(
+        stacked, graph.skeleton, device, shapes, held_b1)
+    # the profile's batch: the endpoint's direct call on a context of the
+    # service's config (the second context's is phase 14's by now)
+    prof_ctx = rest.MGContext(graph, _service_config(), device=device)
+    reqs = _serving_requests() + [REQUEST_KEYFRAME]
+    return (launches, shapes, held,
+            lambda _=None: _direct_batch(prof_ctx, reqs), batch_wall)
+
+
+def _check_terrain(ctx):
+    """The scene's heights at the grid's texels are the grid's."""
+    grid = _terrain()
+    scene = ctx.generator.scene_interface
+    for iz in range(0, TERRAIN_N, 5):
+        for ix in range(0, TERRAIN_N, 5):
+            x = TERRAIN_ORIGIN[0] + TERRAIN_SCALE * ix
+            z = TERRAIN_ORIGIN[1] + TERRAIN_SCALE * iz
+            if abs(scene.get_height(x, z) - grid[iz, ix]) > 1e-9:
+                _fail(f"/set_height_map: the scene's height at ({x}, {z}) "
+                      f"is {scene.get_height(x, z)}, not {grid[iz, ix]}")
+
+
+def _hold_b1(stacked, skel, device, shapes, held_b1):
+    """B1 at each recorded (C, N, table rows) shape: the shapes phase 3
+    held are named, the others held now against the twin."""
+    out = []
+    for (c, n, g8), launched in sorted(
+            shapes["score_locomotion_candidates"].items()):
+        if (c, g8) in held_b1:
+            out.append(dict(shape=f"[{c}, {n}, {g8}]", launches=launched,
+                            held_by="phase 3"))
+            continue
+        from morphablegraphs_tpu_torch.ops import kernels
+        args = _b1_inputs(stacked, skel, c, g8 - 8, device, seed=77)[:4]
+        err, summary = _check_scores(
+            "B1", kernels.score_locomotion_candidates(*args),
+            kernels.score_locomotion_candidates_ref(*args))
+        print(f"service B1 [{c}, {n}, {g8}]: {summary}", flush=True)
+        out.append(dict(shape=f"[{c}, {n}, {g8}]", launches=launched,
+                        max_abs_err=err))
+    return out
+
+
+def _serving_outputs(graph, device, group=None):
+    """Phase 9's 8 requests through BatchedGenerator(graph, device, group)
+    -> (their frames, the crowd's (segments, n_frames, node_ids, errors)
+    on the host)."""
+    from morphablegraphs_tpu_torch import parallel
+    from morphablegraphs_tpu_torch.serve.batch import BatchedGenerator
+    bg = BatchedGenerator(graph, device=device, group=group)
+    inner, out = parallel.constrained_crowd_sharded, []
+
+    def capture(*a, **kw):
+        r = inner(*a, **kw)
+        out.append(tuple(x.cpu() for x in r))
+        return r
+    parallel.constrained_crowd_sharded = capture
+    try:
+        frames = bg.generate_batch(_serving_requests())
+    finally:
+        parallel.constrained_crowd_sharded = inner
+    return frames, out[0]
+
+
+def _dtw(skel, clips, device):
+    """constructor.align_frames_temporally of the clips on `device` (over
+    the default process group when one of several ranks is up) ->
+    (warping functions {name: [int]}, warped frames {name: array})."""
+    from morphablegraphs_tpu_torch.construct import constructor
+    warped, warps = constructor.align_frames_temporally(skel, clips,
+                                                        device=device)
+    return {k: [int(i) for i in v] for k, v in warps.items()}, warped
+
+
+def _group_rank(rank: int, tmp: str, device: str):
+    """One rank of the two-rank gloo group (spawned), on `device`: the
+    serving crowd and the DTW over the group -> out<rank>.pt."""
+    import datetime
+    import os
+
+    import torch
+    import torch.distributed as dist
+    from morphablegraphs_tpu_torch.ops import cuda_build
+    device = torch.device(device)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (
+        lambda: None)
+    if device.type == "cuda":
+        cuda_build.load_library()
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(tmp, "store"),
+                                     GROUP_RANKS),
+        rank=rank, world_size=GROUP_RANKS,
+        timeout=datetime.timedelta(seconds=300))
+    try:
+        clips = torch.load(os.path.join(tmp, "clips.pt"), weights_only=False)
+        graph, _ = _ref_model(device)
+        sync()
+        t0 = time.perf_counter()
+        frames, crowd = _serving_outputs(graph, device, dist.group.WORLD)
+        sync()
+        t1 = time.perf_counter()
+        warps, warped = _dtw(graph.skeleton, clips, device)
+        sync()
+        torch.save(dict(frames=frames, crowd=crowd, warps=warps,
+                        warped=warped,
+                        seconds=(t1 - t0, time.perf_counter() - t1)),
+                   os.path.join(tmp, f"out{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _crowds_equal(a, b) -> float:
+    """The worst difference of two serving crowds (frames list, (segments,
+    n_frames, node_ids, errors)): frames and segments absolute, errors
+    relative to 1 + |error|; inf when frame counts or node ids differ."""
+    import torch
+    (fa, ca), (fb, cb) = a, b
+    if not (torch.equal(ca[1], cb[1]) and torch.equal(ca[2], cb[2])) or [
+            f.shape for f in fa] != [f.shape for f in fb]:
+        return float("inf")
+    return max(max(float(np.abs(x - y).max()) for x, y in zip(fa, fb)),
+               float((ca[0] - cb[0]).abs().max()),
+               float(((ca[3] - cb[3]).abs() / (1.0 + cb[3].abs())).max()))
+
+
+class _CliServer:
+    """`python -m morphablegraphs_tpu_torch.serve.cli serve zip --port P`
+    in its own process (on the card, its default; on the CPU only when
+    `device` is), started at construction."""
+
+    def __init__(self, zip_path: str, device):
+        import queue
+        import socket
+        import threading
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            self.port = sock.getsockname()[1]
+        self.name = pathlib.Path(zip_path).name
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "morphablegraphs_tpu_torch.serve.cli",
+             "serve", zip_path, "--port", str(self.port)]
+            + (["--device", "cpu"] if str(device) == "cpu" else []),
+            cwd=str(pathlib.Path(__file__).resolve().parent),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.lines = queue.Queue()
+        threading.Thread(target=lambda: [self.lines.put(x)
+                                         for x in self.proc.stdout],
+                         daemon=True).start()
+
+    def check(self, smi: str):
+        """Wait for its serving line, then phase 13's config-3 request,
+        /get_skeleton and a bad JSON body (400)."""
+        import queue
+        seen = []
+        while True:
+            try:
+                line = self.lines.get(timeout=SERVER_START_S)
+            except queue.Empty:
+                _fail(f"`cli serve` printed no serving line in "
+                      f"{SERVER_START_S} s: {''.join(seen)[-2000:]}")
+            seen.append(line)
+            if line.startswith("serving morphablegraphs on :"):
+                break
+            if self.proc.poll() is not None:
+                _fail(f"`cli serve` exited {self.proc.returncode}: "
+                      f"{''.join(seen)[-2000:]}")
+        if line.strip() != f"serving morphablegraphs on :{self.port}":
+            _fail(f"`cli serve` serves on another port: {line.strip()}")
+        t_up = time.perf_counter() - self.t0
+        base = f"http://127.0.0.1:{self.port}"
+        t1 = time.perf_counter()
+        got = [_http(base, "POST", "/run_morphablegraphs", REQUEST_CONFIG3)]
+        t_req = time.perf_counter() - t1
+        got.append(_http(base, "GET", "/get_skeleton"))
+        got.append(_http(base, "POST", "/run_morphablegraphs", b"not json{"))
+        status = [g[0] for g in got]
+        n_frames = (len(_bvh_frames(json.loads(got[0][1])["bvh"]))
+                    if status[0] == 200 else 0)
+        print(f"service cli serve ({smi}): `cli serve {self.name} --port "
+              f"{self.port}` up in {t_up:.2f} s (a fresh process: imports, "
+              f"the card, load_graph); config 3's request {t_req:.3f} s (its "
+              f"first) with {n_frames} frames; statuses {status} (expected "
+              f"[200, 200, 400])", flush=True)
+        if status != [200, 200, 400] or n_frames <= 30 or \
+                b"HIERARCHY" not in got[1][1]:
+            _fail(f"`cli serve` answered {status}")
+
+    def stop(self):
+        self.proc.terminate()
+        try:
+            self.proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+
+
+def phase_service(graph, stacked, device, smi: str, zip_path: str, held_b1):
+    """Phase 18: the endpoints in process; then, while two spawned gloo
+    ranks split the serving crowd and a 20-clip DTW and `cli serve` starts
+    in its own process, the serving crowd over a world-size-1 NCCL group
+    against the direct call, the CLI server's answers, and the ranks'
+    results against the one-process ones.  -> (launches per endpoint,
+    shapes, held, the batch profile's run and wall, the phase's
+    seconds)."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    t_phase = time.perf_counter()
+    launches, shapes, held, profiled, batch_wall = phase_service_endpoints(
+        graph, stacked, device, smi, held_b1)
+    t_endpoints = time.perf_counter() - t_phase
+
+    direct = _serving_outputs(graph, device)
+    skel, clips = _train_clip_frames(device, GROUP_CLIPS)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(clips, os.path.join(tmp, "clips.pt"))
+        t0 = time.perf_counter()
+        group = mp.start_processes(_group_rank, args=(tmp, str(device)),
+                                   nprocs=GROUP_RANKS, join=False,
+                                   start_method="spawn")
+        server = _CliServer(zip_path, device)
+        try:
+            t1 = time.perf_counter()
+            backend = "nccl" if torch.device(device).type == "cuda" \
+                else "gloo"
+            dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                    world_size=1)
+            try:
+                nccl = _serving_outputs(graph, device, dist.group.WORLD)
+                torch.cuda.synchronize()
+            finally:
+                dist.destroy_process_group()
+            t_nccl = time.perf_counter() - t1
+            err_nccl = _crowds_equal(nccl, direct)
+            print(f"service group (a) ({smi}): the serving crowd over a "
+                  f"world-size-1 {backend} group in {t_nccl:.3f} s (init included; the "
+                  f"gloo ranks and the CLI server start meanwhile): frames "
+                  f"and errors within {err_nccl:.2e} of the direct call's "
+                  f"(tol {GROUP_FRAMES_ATOL}), node ids and frame counts "
+                  f"{'equal' if np.isfinite(err_nccl) else 'DIFFERENT'}",
+                  flush=True)
+            if not err_nccl <= GROUP_FRAMES_ATOL:
+                _fail("the NCCL group's serving crowd differs from the "
+                      "direct call")
+            t1 = time.perf_counter()
+            one_dtw = _dtw(skel, clips, device)
+            t_dtw = time.perf_counter() - t1
+            server.check(smi)
+            while not group.join(timeout=600):
+                pass
+        except Exception as e:  # a rank that raised, or the NCCL group
+            _fail(f"phase 18's groups: {type(e).__name__}: {e}")
+        finally:
+            server.stop()
+            for p in group.processes:
+                if p.is_alive():
+                    p.terminate()
+        t_group = time.perf_counter() - t0
+        outs = [torch.load(os.path.join(tmp, f"out{r}.pt"),
+                           weights_only=False) for r in range(GROUP_RANKS)]
+    worst, warp_diff = 0.0, 0
+    for o in outs:
+        worst = max(worst, _crowds_equal((o["frames"], o["crowd"]), direct))
+        warp_diff += sum(o["warps"].get(k) != v
+                         for k, v in one_dtw[0].items())
+        worst = max(worst, max(float(np.abs(np.asarray(o["warped"][k])
+                                            - np.asarray(v)).max())
+                               for k, v in one_dtw[1].items()))
+    print(f"service group (b) ({smi}): {GROUP_RANKS} gloo ranks spawned on "
+          f"the one card (NCCL refuses two ranks on one card; "
+          f"{torch.cuda.device_count()} card(s) visible) split the serving crowd {8 // GROUP_RANKS}/"
+          f"{8 // GROUP_RANKS} and the {GROUP_CLIPS}-clip DTW's pairs: "
+          f"{t_group:.2f} s from spawn to join (group (a) and the CLI "
+          f"server's check ran meanwhile), each rank's crowd and DTW s "
+          f"{[tuple(round(s, 3) for s in o['seconds']) for o in outs]} "
+          f"(a fresh process's first crowd), the one-process DTW "
+          f"{t_dtw:.3f} s; frames within {worst:.2e} of the one-process "
+          f"results (tol {GROUP_FRAMES_ATOL}), {warp_diff} warping "
+          f"functions different", flush=True)
+    if not worst <= GROUP_FRAMES_ATOL or warp_diff:
+        _fail("the gloo group's crowd or DTW differs from one process's")
+    t = time.perf_counter() - t_phase
+    print(f"phase 18 seconds: {t:.1f} (endpoints {t_endpoints:.1f}, the "
+          f"groups and the CLI server {t - t_endpoints:.1f}) ({smi})",
+          flush=True)
+    return launches, shapes, held, profiled, batch_wall, t
+
+
+def _trace_summary(prof, device_type, prefix="walk."):
     """(kernels [(name, device ms)], stages {walk.* name: [host ms, device
-    busy ms, device span ms]}) of a torch.profiler trace, read from its raw
+    busy ms, device span ms]}; `prefix` names the ranges, a string or a
+    tuple of them) of a torch.profiler trace, read from its raw
     events: building `prof.events()`' trees of a families run (~1M events)
     takes minutes.  The walk.* ranges appear twice, on the host timeline
     and as a span on the device's; kernels are the other device events.  A
@@ -3495,7 +4067,7 @@ def _trace_summary(prof, device_type, prefix: str = "walk."):
     return [(n, ms) for n, ms, _ in kernels], stages
 
 
-def phase_profile(name, run, crowd_seconds: float, prefix: str = "walk."):
+def phase_profile(name, run, crowd_seconds: float, prefix="walk."):
     """One more crowd run (or request) under torch.profiler: device busy
     time from the CUDA kernel events, CPU / device time per stage (the
     walk.* ranges of constrained_walk.full_walk_step, or a request's
@@ -3626,8 +4198,10 @@ def main():
     print(f"phase 15 seconds: {time.perf_counter() - t15:.1f} (sessions "
           f"{t_sessions:.1f}, GPU vs CPU reference {t_reference:.1f})",
           flush=True)
+    service_tmp = tempfile.TemporaryDirectory()
+    service_zip = str(pathlib.Path(service_tmp.name) / "packaged_walk.zip")
     package_counts, package_shapes, package_held, t16 = phase_package(
-        device, smi)
+        device, smi, zip_copy=service_zip)
     print(f"phase 16 seconds: {t16:.1f}", flush=True)
     cluster_counts, cluster_shapes, cluster_held, t17 = phase_cluster(
         device, smi)
@@ -3641,6 +4215,10 @@ def main():
           flush=True)
     randoms = {name: phase_random_crowd(name, stacked, device, smi)
                for name in ("segments", "concat", "canonical")}
+    (service_counts, service_shapes, service_held, service_run,
+     service_wall, _) = phase_service(graph, stacked, device, smi,
+                                      service_zip, set(b1_times))
+    service_tmp.cleanup()
     _flush_kernel_lines()
     for name in ("root", "ee", "lm_exact", "families"):
         phase_profile(name, crowds[name][4], crowds[name][0])
@@ -3654,6 +4232,10 @@ def main():
     for name, (run, wall, _, _) in options.items():
         phase_profile(f"request {name}", run, wall, "request.")
     t14.append(time.perf_counter() - t0)
+    phase_profile("service batch (the batch endpoint's direct call: 8 "
+                  "requests through BatchedGenerator, the keyframe request "
+                  "through MGContext.run)", service_run, service_wall,
+                  ("walk.", "request."))
     print(f"phase 14 seconds: requests {t14[0]:.1f}, GPU vs CPU reference "
           f"{t14[1]:.1f}, their profiles (phase 12) {t14[2]:.1f}; total "
           f"{sum(t14):.1f}", flush=True)
@@ -3712,7 +4294,13 @@ def main():
              "shapes": {str(list(k)): n
                         for k, n in cluster_shapes[name].items()},
              "held": cluster_held[name]}}
-            if name in cluster_shapes else {})}
+            if name in cluster_shapes else {}),
+         **({"service": {
+             "launches": {e: c[name] for e, c in service_counts.items()},
+             "shapes": {str(list(k)): n
+                        for k, n in service_shapes[name].items()},
+             "held": service_held[name]}}
+            if name in service_shapes else {})}
         for name, source, line, counts in table]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

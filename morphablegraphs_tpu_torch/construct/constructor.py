@@ -19,6 +19,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.skeleton import Skeleton, fk_point_cloud
 from ..ops import bspline, quat as quat_ops
@@ -84,7 +85,10 @@ def align_frames_temporally(skeleton: Skeleton,
                             device=None, stats: Optional[dict] = None):
     """DTW every motion against the reference motion (the one closest to
     the mean length, reference :266-301), its FK point clouds and grids on
-    `device`; `stats` as `dtw.find_optimal_dtw`'s.  -> (warped {key:
+    `device`; `stats` as `dtw.find_optimal_dtw`'s.  When a
+    torch.distributed default group of more than one rank is initialized,
+    the pair grids are split over its ranks (each rank's `device`), as the
+    JAX package splits them over every visible device.  -> (warped {key:
     frames}, warping functions {key: [int]})."""
     dev = device_mod.resolve(device, "align_frames_temporally")
     point_clouds = {
@@ -93,8 +97,10 @@ def align_frames_temporally(skeleton: Skeleton,
         for key, m in motions.items()}
     if mean_key is None:
         mean_key = _mean_length_key(motions)
+    group = (dist.group.WORLD if dist.is_available() and dist.is_initialized()
+             and dist.get_world_size() > 1 else None)
     results = dtw_mod.find_optimal_dtw(point_clouds, mean_key, device=dev,
-                                       stats=stats)
+                                       stats=stats, group=group)
     warped, warps = {}, {}
     for key, m in motions.items():
         wf = dtw_mod.get_warping_function(results[key])

@@ -12,8 +12,10 @@ that best align cloud B onto cloud A, then the RMS point distance (the
 semantics of anim_utils `_transform_invariant_point_cloud_distance`, which
 the reference uses).
 
-One device: the JAX package can split the pairs of `find_optimal_dtw`
-over a mesh; the port's counterpart for several cards is ROADMAP item 12.
+`find_optimal_dtw` splits its pair grids over the ranks of a
+torch.distributed process group, as the JAX package splits them over a
+mesh: the clouds replicated, each rank's contiguous pairs on its own
+device, one gather of the grids before the host DP, which every rank runs.
 """
 
 from __future__ import annotations
@@ -190,7 +192,7 @@ PAIR_CHUNK = 256
 
 
 def find_optimal_dtw(point_clouds: Dict, mean_key=None, device=None,
-                     stats: Optional[dict] = None) -> Dict:
+                     stats: Optional[dict] = None, group=None) -> Dict:
     """DTW of every motion against a reference (reference
     find_optimal_dtw_async, dtw.py:175-197: with mean_key only that
     reference is tried; otherwise the reference of least total path cost
@@ -199,7 +201,11 @@ def find_optimal_dtw(point_clouds: Dict, mean_key=None, device=None,
     The pairwise grids, the loop the reference spreads over a process
     pool, are computed in padded chunks of PAIR_CHUNK pairs on `device`
     (CUDA unless named), as the JAX package chunks them; only the small
-    sequential DP runs per pair on the host.  `stats`, a dict, gains the
+    sequential DP runs per pair on the host.  Given a torch.distributed
+    process `group`, each rank computes its contiguous share of the pairs
+    on its own `device` and the grids are gathered to every rank before
+    the DP (the pairs padded to a multiple of the ranks by repeating the
+    first pair).  `stats`, a dict, gains the
     seconds of the grids ("dtw_grids") and of the DP ("dtw_dp"), and the
     chosen reference's total path cost ("dtw_cost")."""
     import time
@@ -211,17 +217,18 @@ def find_optimal_dtw(point_clouds: Dict, mean_key=None, device=None,
     pairs = [(idx_of[rk], idx_of[k]) for rk in ref_keys for k in keys]
     a_idx = np.asarray([p[0] for p in pairs], np.int64)
     b_idx = np.asarray([p[1] for p in pairs], np.int64)
+    from ..parallel.crowd import all_gather_rows, rank_rows
+    mine = rank_rows(torch.as_tensor(np.stack([a_idx, b_idx], 1)), group)
     t0 = time.perf_counter()
     clouds_d = torch.as_tensor(clouds, device=dev)
     grid_chunks = []
-    for c0 in range(0, len(pairs), PAIR_CHUNK):
-        g = _pair_grids(clouds_d,
-                        torch.as_tensor(a_idx[c0: c0 + PAIR_CHUNK],
-                                        device=dev),
-                        torch.as_tensor(b_idx[c0: c0 + PAIR_CHUNK],
-                                        device=dev))
-        grid_chunks.append(g.cpu().numpy())
-    grids = np.concatenate(grid_chunks)
+    for c0 in range(0, len(mine), PAIR_CHUNK):
+        ab = mine[c0: c0 + PAIR_CHUNK].to(dev)
+        grid_chunks.append(_pair_grids(clouds_d, ab[:, 0], ab[:, 1]).cpu())
+    grids = torch.cat(grid_chunks)
+    if group is not None:
+        grids = all_gather_rows(grids, group)[: len(pairs)]
+    grids = grids.numpy()
     t1 = time.perf_counter()
 
     best_cost, best_results = np.inf, None

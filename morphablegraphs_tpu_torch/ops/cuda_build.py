@@ -26,6 +26,12 @@ _lock = threading.Lock()
 _lib = None
 
 
+class KernelError(RuntimeError):
+    """A kernel could not run: its build or load failed, it returned a
+    CUDA error, or its wrapper has no kernel for the tensor's device.
+    Not a fault of the request or input that reached the kernel."""
+
+
 def _sources():
     return sorted(_CSRC.glob("*.cu"))
 
@@ -41,7 +47,7 @@ def source_hash() -> str:
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
     if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (CUDA_HOME unset and no "
+        raise KernelError("no CUDA toolkit found (CUDA_HOME unset and no "
                            "nvcc on PATH): cannot build the kernels")
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
@@ -73,7 +79,7 @@ def _run_all(cmds):
     outs = [(proc.communicate()[0], proc.returncode) for proc in procs]
     for cmd, (out, rc) in zip(cmds, outs):
         if rc != 0:
-            raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
+            raise KernelError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
 
 
 def load_library():
@@ -98,7 +104,10 @@ def load_library():
                 lib = os.path.join(tmp, "libmg_kernels.so")
                 _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
                 os.replace(lib, so)
-        _lib = _declare(ctypes.CDLL(str(so)))
+        try:
+            _lib = _declare(ctypes.CDLL(str(so)))
+        except OSError as e:
+            raise KernelError(f"cannot load {so}: {e}") from e
         return _lib
 
 
@@ -108,6 +117,7 @@ def library_path() -> pathlib.Path:
 
 
 def check(err: int, what: str):
-    """Raise on a nonzero cudaError_t returned by a C entry point."""
+    """Raise KernelError on a nonzero cudaError_t returned by a C entry
+    point."""
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err}")
+        raise KernelError(f"{what}: CUDA error {err}")

@@ -20,7 +20,8 @@
   kernel, then the aligning transform and the seam smoothing.
 
 A wrapper given CPU tensors runs the twin; given CUDA tensors it launches
-the kernel (or raises).  Each wrapper adds one to its kernel's entry of
+the kernel, or raises `KernelError` (a failed build, a CUDA error, a
+device with no kernel).  Each wrapper adds one to its kernel's entry of
 `launch_counts()` where it launches it, and nowhere else.
 """
 
@@ -32,6 +33,7 @@ import numpy as np
 import torch
 
 from . import align, bspline, cuda_build, gmm as gmm_ops
+from .cuda_build import KernelError
 
 N_EVAL = 19  # goal kf + dir + 16 traj samples + frame 0 (alignment)
 CH = 8  # root channels per eval frame, padded (x y z qw qx qy qz _)
@@ -449,7 +451,7 @@ def score_locomotion_candidates(mop: torch.Tensor, alphas: torch.Tensor,
         return score_locomotion_candidates_ref(mop, alphas, table, cfg,
                                                chain)
     if mop.device.type != "cuda":
-        raise ValueError(f"no kernel for device {mop.device}")
+        raise KernelError(f"no kernel for device {mop.device}")
     _check_cuda("score_locomotion_candidates", mop, alphas, table, cfg)
     n_sm = torch.cuda.get_device_properties(mop.device).multi_processor_count
     return _launch_selection(mop, alphas, table, cfg, chain,
@@ -494,7 +496,7 @@ def chol_solve(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     if a.device.type == "cpu":
         return chol_solve_unrolled(a, g)
     if a.device.type != "cuda":
-        raise ValueError(f"no kernel for device {a.device}")
+        raise KernelError(f"no kernel for device {a.device}")
     a = a.contiguous()
     g = g.contiguous()
     _check_cuda("chol_solve", a, g)
@@ -552,7 +554,7 @@ def lm_delta(j: torch.Tensor, r: torch.Tensor, lam: torch.Tensor,
     if j.device.type == "cpu":
         return lm_delta_ref(j, r, lam, radius)
     if j.device.type != "cuda":
-        raise ValueError(f"no kernel for device {j.device}")
+        raise KernelError(f"no kernel for device {j.device}")
     j, r, lam, radius = (t.contiguous() for t in (j, r, lam, radius))
     _check_cuda("lm_delta", j, r, lam, radius)
     c, n_res, k = j.shape
@@ -649,7 +651,7 @@ def gmm_scores(x: torch.Tensor, weights: torch.Tensor, means: torch.Tensor,
     if x.device.type == "cpu":
         return gmm_scores_ref(x, weights, means, prec_chol, mix_id)
     if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
+        raise KernelError(f"no kernel for device {x.device}")
     return _launch_gmm(x, weights, means, prec_chol, mix_id, False)[0]
 
 
@@ -662,7 +664,7 @@ def gmm_nll_and_grad(x: torch.Tensor, weights: torch.Tensor,
     if x.device.type == "cpu":
         return gmm_nll_and_grad_ref(x, weights, means, prec_chol, mix_id)
     if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
+        raise KernelError(f"no kernel for device {x.device}")
     logp, grad = _launch_gmm(x, weights, means, prec_chol, mix_id, True)
     return -logp, grad
 
@@ -764,7 +766,7 @@ def crowd_back_project(alphas: torch.Tensor, eigen: torch.Tensor,
     if alphas.device.type == "cpu":
         return crowd_back_project_ref(alphas, eigen, mean, basis, mix_id)
     if alphas.device.type != "cuda":
-        raise ValueError(f"no kernel for device {alphas.device}")
+        raise KernelError(f"no kernel for device {alphas.device}")
     eigen, mean, basis, mix_id = _back_project_args(alphas, eigen, mean,
                                                     basis, mix_id)
     alphas, eigen, mean, basis = (t.contiguous()
@@ -855,7 +857,7 @@ def emit_frames(alphas: torch.Tensor, eigen: torch.Tensor, mean: torch.Tensor,
         return emit_frames_ref(alphas, eigen, mean, knots, mix_id, t_fn,
                                n_frames, prev_last, has_prev, window)
     if alphas.device.type != "cuda":
-        raise ValueError(f"no kernel for device {alphas.device}")
+        raise KernelError(f"no kernel for device {alphas.device}")
     alphas, eigen, mean, knots, t_fn = (
         t.contiguous() for t in (alphas, eigen, mean, knots, t_fn))
     _check_cuda("emit_frames", alphas, eigen, mean, knots, t_fn)

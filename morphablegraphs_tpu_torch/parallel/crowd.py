@@ -2,12 +2,19 @@
 
 The JAX package splits the character axis over a device mesh: per-character
 inputs are sharded, the stacked graph is replicated, and the characters
-never communicate.  The port takes a list of devices in place of the mesh.
-On one device both entry points run the crowd functions there, after the
-same host-side checks, padding and slicing as the JAX package; more than one
-device raises NotImplementedError (splitting the crowd with
-torch.distributed is ROADMAP item 12), so nothing runs elsewhere than
-asked."""
+never communicate.  The port runs one process per card, joined in a
+torch.distributed process group (`torchrun --nproc_per_node N`, or any
+group the caller initializes): every rank is handed the whole crowd, takes
+its contiguous rows of the padded crowd, with the same rows of the injected
+draws, on its own device, and walks them with the graph and the constraint
+sets replicated.  Nothing is communicated inside the walk; one all_gather
+per output array returns the whole crowd to every rank.  NCCL gathers the
+CUDA tensors in place, gloo gathers CPU copies.
+
+Without a group both entry points run the whole crowd on their one device.
+`devices` names this process's device; a list of several is refused: one
+process drives one card, and several cards take a process group.
+"""
 
 from __future__ import annotations
 
@@ -15,6 +22,7 @@ import dataclasses
 from typing import Callable, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from ..constraints import compiled
 from ..models.graph import StackedGraph
@@ -25,15 +33,15 @@ from ..synthesis import walk as walk_mod
 
 
 def _single_device(devices: Sequence) -> torch.device:
-    """The one device of `devices`; more than one is refused."""
+    """This process's one device; more than one is refused."""
     devices = [torch.device(d) for d in devices]
     if not devices:
         raise ValueError("no device given")
     if len(devices) > 1:
         raise NotImplementedError(
-            f"a crowd over {len(devices)} devices needs torch.distributed, "
-            "which the port does not use yet (ROADMAP item 12); pass one "
-            "device")
+            f"one process drives one device, and {len(devices)} were given: "
+            "run one process per device in a torch.distributed process "
+            "group and pass it as group=, each rank naming its own device")
     return devices[0]
 
 
@@ -42,29 +50,62 @@ def _pad_rows(x: torch.Tensor, pad: int) -> torch.Tensor:
     return torch.cat([x, x[:1].expand((pad,) + x.shape[1:])]) if pad else x
 
 
-def _draws_on(draws: Callable[[int], walk_mod.StepDraws], device,
-              pad: int = 0):
+def rank_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """This rank's contiguous rows of x, whose leading axis is padded to a
+    multiple of the group's size by repeating its first row; all of x
+    without a group."""
+    if group is None:
+        return x
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    x = _pad_rows(x, (-x.shape[0]) % world)
+    per = x.shape[0] // world
+    return x[rank * per: (rank + 1) * per]
+
+
+def _draws_on(draws: Callable[[int], walk_mod.StepDraws], device, group):
     def at(t: int) -> walk_mod.StepDraws:
         d = draws(t)
-        return walk_mod.StepDraws(*(_pad_rows(getattr(d, f.name), pad)
+        return walk_mod.StepDraws(*(rank_rows(getattr(d, f.name), group)
                                     .to(device)
                                     for f in dataclasses.fields(d)))
     return at
 
 
+def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's x (the same shape on each) concatenated along axis 0 in
+    rank order, on x's device.  NCCL gathers CUDA tensors (a CPU x goes
+    through this rank's current card), the other backends CPU copies."""
+    world = dist.get_world_size(group)
+    if dist.get_backend(group) != "nccl":
+        on = x.cpu()
+    elif x.is_cuda:
+        on = x
+    else:
+        on = x.to(torch.device("cuda", torch.cuda.current_device()))
+    on = on.contiguous()
+    parts = [torch.empty_like(on) for _ in range(world)]
+    dist.all_gather(parts, on, group=group)
+    return torch.cat(parts).to(x.device)
+
+
 def crowd_walk_sharded(devices: Sequence, g: StackedGraph, start_id: int,
                        n_chars: int, draws: Callable[[int],
                                                      walk_mod.StepDraws],
-                       n_steps: int = 8, max_step_frames: int = 64):
+                       n_steps: int = 8, max_step_frames: int = 64,
+                       group=None):
     """A crowd of n_chars concatenating random walks from start_id
-    (`walk.random_walk_crowd`); n_chars must be a multiple of the device
-    count.  Returns what `walk.random_walk` returns."""
-    if n_chars % len(devices) != 0:
-        raise ValueError(f"{n_chars} characters over {len(devices)} devices")
+    (`walk.random_walk_crowd`), split over the ranks of `group`;
+    n_chars must be a multiple of the group's size.  Returns what
+    `walk.random_walk` returns, for the whole crowd on every rank."""
+    world = 1 if group is None else dist.get_world_size(group)
+    if n_chars % world != 0:
+        raise ValueError(f"{n_chars} characters over {world} ranks")
     dev = _single_device(devices)
-    return walk_mod.random_walk_crowd(
-        g.to(dev), start_id, n_chars, n_steps, _draws_on(draws, dev),
-        max_step_frames=max_step_frames)
+    out = walk_mod.random_walk_crowd(
+        g.to(dev), start_id, n_chars // world, n_steps,
+        _draws_on(draws, dev, group), max_step_frames=max_step_frames)
+    return out if group is None else tuple(all_gather_rows(o, group)
+                                           for o in out)
 
 
 def constrained_crowd_sharded(devices: Sequence, skeleton: Skeleton,
@@ -72,26 +113,29 @@ def constrained_crowd_sharded(devices: Sequence, skeleton: Skeleton,
                               start_ids: torch.Tensor, n_steps: int,
                               draws: Callable[[int], walk_mod.StepDraws],
                               step_scs=None,
-                              cfg: Optional[cw.WalkConfig] = None):
+                              cfg: Optional[cw.WalkConfig] = None,
+                              group=None):
     """The full-constraint crowd (`constrained_walk_full_crowd`) with
-    per-character paths [C] and start_ids [C].  The walk's contract guards
-    run first; a character count that does not divide the devices is
-    padded by repeating the first character (its draws too) and the
-    padding is sliced off the outputs.  Returns (segments, n_frames,
-    node_ids, errors) as `constrained_walk_full_crowd`, with its fifth
-    array under cfg.return_pre_lm_err."""
+    per-character paths [C] and start_ids [C], split over the ranks of
+    `group`.  The walk's contract guards run first; a character count that
+    does not divide the ranks is padded by repeating the first character
+    (its draws too) and the padding is sliced off the outputs.  Returns
+    (segments, n_frames, node_ids, errors) as `constrained_walk_full_crowd`,
+    with its fifth array under cfg.return_pre_lm_err, for the whole crowd
+    on every rank."""
     cfg = cfg or cw.WalkConfig()
     if step_scs is None:
         step_scs = cw.default_step_scs(skeleton, n_steps)
     cw.check_walk_contract(skeleton, step_scs, cfg,
                            compiled.step_scs_root_only(step_scs))
     n_chars = start_ids.shape[0]
-    pad = (-n_chars) % len(devices)
     dev = _single_device(devices)
     paths = spline_path.PathSpline(**{
-        f.name: _pad_rows(getattr(paths, f.name), pad).to(dev)
+        f.name: rank_rows(getattr(paths, f.name), group).to(dev)
         for f in dataclasses.fields(paths)})
     out = cw.constrained_walk_full_crowd(
-        skeleton, g.to(dev), paths, _pad_rows(start_ids, pad).to(dev),
-        n_steps, _draws_on(draws, dev, pad), step_scs=step_scs, cfg=cfg)
+        skeleton, g.to(dev), paths, rank_rows(start_ids, group).to(dev),
+        n_steps, _draws_on(draws, dev, group), step_scs=step_scs, cfg=cfg)
+    if group is not None:
+        out = tuple(all_gather_rows(o, group) for o in out)
     return tuple(o[:n_chars] for o in out)

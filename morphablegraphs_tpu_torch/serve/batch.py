@@ -1,5 +1,5 @@
 """Batched request serving: many trajectory requests -> one crowd walk
-(port of morphablegraphs_tpu.serve.batch, single device).
+(port of morphablegraphs_tpu.serve.batch).
 
 Each batchable request (one locomotion action following a root trajectory,
 no keyframe constraints) becomes one character of a crowd walk.  With
@@ -9,7 +9,9 @@ device as in the JAX package, with its single-device serving flags: the
 selection kernel B1 (on CUDA; its plain twin on CPU) while the constraint
 sets carry the locomotion family only, n_samples then rounded up to its
 tile of 128, root_only derived from the constraint sets, and the exact LM
-(lm_frozen=False), whose solves go through kernel B2.  Without
+(lm_frozen=False), whose solves go through kernel B2.  Given a
+torch.distributed process group, every rank is handed the same requests
+and walks its rows of the crowd on its own device (`parallel/`).  Without
 full_constraints it is the boundary-row `constrained_walk_crowd`.
 """
 
@@ -65,14 +67,16 @@ class BatchedGenerator:
     complete compiled constraint semantics and the gated LM; n_samples
     rounded up to the selection kernel's tile of 128); False keeps the
     boundary-row scorer of `constrained_walk_crowd` with n_samples as
-    given."""
+    given.  `group`, a torch.distributed process group, splits the
+    full-constraint crowd over its ranks (each rank's own `device`)."""
 
     def __init__(self, graph: MotionStateGraph, config: Optional[dict] = None,
                  n_steps: int = 12, n_samples: int = 64,
                  max_step_frames: int = 64, full_constraints: bool = True,
-                 lm_iters: int = 3, device=None):
+                 lm_iters: int = 3, device=None, group=None):
         self.graph = graph
         self.device = device_mod.resolve(device, "BatchedGenerator")
+        self.group = group
         self.stacked = stack_graph(graph, device=self.device)
         self.config = config or default_config()
         self.n_steps = n_steps
@@ -162,7 +166,8 @@ class BatchedGenerator:
                 pallas_selection=compiled.step_scs_locomotion_only(step_scs))
             segs, n_frames, _, _ = parallel.constrained_crowd_sharded(
                 [self.device], skel, self.stacked, stacked_paths, start,
-                self.n_steps, draws, step_scs=step_scs, cfg=cfg)
+                self.n_steps, draws, step_scs=step_scs, cfg=cfg,
+                group=self.group)
         else:
             segs, n_frames, _, _ = cw.constrained_walk(
                 self.stacked, stacked_paths, start, self.n_steps, draws,

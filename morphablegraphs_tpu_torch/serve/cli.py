@@ -5,13 +5,14 @@
         [--config configs/space_partitioning.json]
     python -m morphablegraphs_tpu_torch.serve.cli run GRAPH.zip INPUT_DIR \\
         OUTPUT_DIR [--config configs/standard_algorithm.config]
+    python -m morphablegraphs_tpu_torch.serve.cli serve GRAPH.zip [--port P]
     python -m morphablegraphs_tpu_torch.serve.cli set-config CONFIG [--url U]
 
 Replaces reference examples/run_construction.py (train),
-mg_command_line_interface.py (the offline pipeline) and
-generate_cluster_trees.py.  Every command runs on the CUDA device unless
-it is given --device cpu.  `serve` (the Tornado REST service) is not
-ported yet: it raises NotImplementedError naming ROADMAP item 16.
+mg_command_line_interface.py (the offline pipeline),
+generate_cluster_trees.py and mg_rest_interface.py (serve: the REST
+service of serve/rest.py).  Every command runs on the CUDA device unless
+it is given --device cpu.
 """
 
 from __future__ import annotations
@@ -183,7 +184,7 @@ def main(argv=None):
                     help="space_partitioning.json (reference examples/config/"
                          "space_partitioning.json schema)")
 
-    s = sub.add_parser("serve", help="start the REST service (not ported)")
+    s = with_device(sub.add_parser("serve", help="start the REST service"))
     s.add_argument("graph_path")
     s.add_argument("--port", type=int, default=8889)
 
@@ -216,9 +217,8 @@ def main(argv=None):
                                         max_level, seed, device=args.device):
             print(f)
     elif args.cmd == "serve":
-        raise NotImplementedError(
-            "the REST service (serve/rest.py) is not ported to "
-            "morphablegraphs_tpu_torch yet (ROADMAP item 16)")
+        from . import rest
+        rest.main(args.graph_path, args.port, device=args.device)
     elif args.cmd == "set-config":
         import urllib.request
         with open(args.config_file, "rb") as f:

@@ -11,8 +11,8 @@ its samples exactly; `run` writes the BVH and sidecars of a direct
 `MotionGenerator` request with the same draws byte for byte, and the JAX
 loader reads the port's package with its trees; AnnotatedMotion's files,
 Unity JSON and events equal JAX's; `load_config` gives JAX's dict for
-every configs/*.config; `serve` is refused naming ROADMAP item 16, and
-`set-config` POSTs the file (urlopen replaced: no socket opens)."""
+every configs/*.config; `serve` hands its arguments to the REST service,
+and `set-config` POSTs the file (urlopen replaced: no socket opens)."""
 
 import glob
 import json
@@ -312,8 +312,14 @@ def test_load_config_matches_jax(path):
 
 def test_serve_is_refused_and_set_config_posts(tmp_path, monkeypatch,
                                                capsys):
-    with pytest.raises(NotImplementedError, match="item 16"):
-        clit.main(["serve", "graph.zip"])
+    """`serve` (refused until the REST service was ported; the name is
+    kept) hands its graph, port and device to rest.main;
+    tests/test_torch_rest.py serves through it."""
+    from morphablegraphs_tpu_torch.serve import rest
+    served = []
+    monkeypatch.setattr(rest, "main", lambda *a, **kw: served.append((a, kw)))
+    clit.main(["serve", "graph.zip", "--port", "0", "--device", "cpu"])
+    assert served == [(("graph.zip", 0), {"device": "cpu"})]
     import urllib.request
     sent = {}
 

@@ -121,7 +121,7 @@ def test_emit_frames_refuses_bad_input(toy):
         kernels.emit_frames(args[0], st_t.eigen_s[:, : n_basis * 10],
                             st_t.mean_s[:, : n_basis * 10], *args[3:],
                             None, False, 20)
-    with pytest.raises(ValueError, match="no kernel for device"):
+    with pytest.raises(kernels.KernelError, match="no kernel for device"):
         kernels.emit_frames(*(a.to("meta") for a in args), None, False, 20)
 
 

@@ -120,7 +120,7 @@ def test_cpu_wrappers_run_the_twins_and_count_nothing():
                                                  prec[None], mix)):
         assert torch.equal(a, b)
     assert kernels.launch_counts()["gmm_scores"] == before
-    with pytest.raises(ValueError, match="no kernel for device"):
+    with pytest.raises(kernels.KernelError, match="no kernel for device"):
         kernels.gmm_scores(*(a.to("meta") for a in (x, w, means, prec)))
     with pytest.raises(ValueError, match="gmm_scores expects"):
         kernels.gmm_scores(x[:, :3], w, means, prec)

@@ -1,5 +1,8 @@
 """The PyTorch port stands without JAX: it imports none of jax, flax, optax,
-sklearn or the JAX package, and builds no kernel at import time."""
+sklearn or the JAX package, and builds no kernel at import time.  It also
+imports without tornado, requests and PIL, which the card's machine lacks:
+the REST service runs on the standard library, and PIL is imported only
+when an image height map arrives."""
 
 import pathlib
 import re
@@ -17,20 +20,23 @@ MODULES = sorted(
     for p in PKG.rglob("*.py") if p.name != "__init__.py")
 
 
+BLOCKED = ("jax", "flax", "optax", "sklearn", "morphablegraphs_tpu",
+           "tornado", "requests", "PIL")
+
+
 def test_port_imports_without_jax():
     """Every module imports in a fresh interpreter where importing jax,
-    flax, optax, sklearn or morphablegraphs_tpu fails."""
+    flax, optax, sklearn, morphablegraphs_tpu, tornado, requests or PIL
+    fails."""
     code = (
         "import sys\n"
-        "for m in ('jax', 'flax', 'optax', 'sklearn', "
-        "'morphablegraphs_tpu'):\n"
+        f"for m in {BLOCKED!r}:\n"
         "    sys.modules[m] = None\n"
         "import importlib\n"
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'optax', 'sklearn', 'morphablegraphs_tpu') "
-        "and sys.modules[m] is not None]\n"
+        f"{BLOCKED!r} and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
         "print('OK', len(sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

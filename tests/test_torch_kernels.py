@@ -178,6 +178,6 @@ def test_wrappers_refuse_bad_input():
             torch.zeros(1, 8, 5), torch.zeros(1, 48))
     with pytest.raises(ValueError, match="chol_solve expects"):
         kernels.chol_solve(torch.zeros(4, 3, 3), torch.zeros(4, 2))
-    with pytest.raises(ValueError, match="no kernel"):
+    with pytest.raises(kernels.KernelError, match="no kernel"):
         kernels.chol_solve(torch.zeros(4, 3, 3, device="meta"),
                            torch.zeros(4, 3, device="meta"))

@@ -235,17 +235,18 @@ def test_single_device_crowds_pass_through(toy):
 
 
 def test_crowds_refuse_more_than_one_device(toy):
-    """Two devices are refused, not run on one; the walk's contract guard
-    still comes first."""
+    """Two devices in one process are refused, not run on one, and the
+    message names the process group; the walk's contract guard still
+    comes first."""
     st_t, start = toy["st_t"], toy["start"]
     gen = torch.Generator().manual_seed(0)
     draws = wt.torch_sampler(gen, st_t, 4, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+    with pytest.raises(NotImplementedError, match="process group"):
         pct.crowd_walk_sharded(["cpu", "cpu"], st_t, start, 4, draws,
                                n_steps=2)
     paths = tp.port_paths(tp.stack_jax_paths(tp.rand_paths(2, seed=2)))
     ids = torch.full((2,), start)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+    with pytest.raises(NotImplementedError, match="process group"):
         pct.constrained_crowd_sharded(["cpu", "cpu"], toy["skel_t"], st_t,
                                       paths, ids, 2, draws)
     scs = cwt.default_step_scs(toy["skel_t"], 2)
@@ -321,7 +322,8 @@ def test_serving_boundary_rows_matches_jax(monkeypatch):
 
 def test_serving_goes_through_parallel(monkeypatch):
     """`generate_batch` reaches the crowd walk through
-    `parallel.constrained_crowd_sharded` on the generator's one device, with
+    `parallel.constrained_crowd_sharded` on the generator's one device (no
+    process group unless it was given one), with
     the selection kernels asked for exactly when the constraint sets carry
     the locomotion family only (JAX's `use_pallas` on one device), and
     returns what the crowd walk returns on the same draws."""
@@ -333,9 +335,9 @@ def test_serving_goes_through_parallel(monkeypatch):
     real = batch_t.parallel.constrained_crowd_sharded
 
     def spy(devices, skel, g, paths, start_ids, n_steps, draws,
-            step_scs=None, cfg=None):
+            step_scs=None, cfg=None, group=None):
         seen.update(devices=list(devices), cfg=cfg, n_steps=n_steps,
-                    scs=step_scs)
+                    scs=step_scs, group=group)
         out = real(devices, skel, g, paths, start_ids, n_steps, draws,
                    step_scs=step_scs, cfg=cfg)
         seen["out"] = out
@@ -344,6 +346,7 @@ def test_serving_goes_through_parallel(monkeypatch):
     monkeypatch.setattr(batch_t.parallel, "constrained_crowd_sharded", spy)
     outs = bg.generate_batch(reqs, seed=3)
     assert seen["devices"] == [torch.device("cpu")] and seen["n_steps"] == 2
+    assert seen["group"] is None  # a generator without a process group
     assert seen["cfg"] == bg.walk_config() and seen["cfg"].pallas_selection
     assert seen["scs"] is not None
     segs, n_frames = (a.numpy() for a in seen["out"][:2])
