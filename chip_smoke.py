@@ -159,9 +159,9 @@ Phases, one line each (or a few):
      server thread over rest.make_app(MGContext(graph, cuda)) on
      127.0.0.1 answers over HTTP, each call followed by its direct call on
      a second context with the same seed: /run_morphablegraphs with config
-     3's request (warm + 2 timed); /run_morphablegraphs_batch with phase
+     3's request (warm + 1 timed); /run_morphablegraphs_batch with phase
      9's 8 trajectory requests and phase 13's keyframe request (the 8 come
-     back batched, the ninth not; warm + 2); /set_configuration to phase
+     back batched, the ninth not; warm + 1); /set_configuration to phase
      14's "timed" config and a batch through the rebuilt generator;
      /set_height_map with a plain height grid (the scene's heights checked
      at the texels) and phase 14's timed request (grounding on) over it:
@@ -173,10 +173,20 @@ Phases, one line each (or a few):
      against the direct call, and over two gloo ranks spawned on the card
      (4 characters each) with a 20-clip DTW of phase 17's clips split
      over them, against the one-process results (frames within 1e-5, node
-     ids and warp indices identical); meanwhile `cli serve` of phase 16's
-     zip in its own process answers config 3's request, /get_skeleton and
-     a bad body (400).  Phase 12's profiles add the batch endpoint's
-     direct call.
+     ids and warp indices identical), each rank's launches of B1, B2, B5
+     and the emit kernel counted and their shapes (B1 [4, 128, 1008], B2
+     [4, 28, 28], B5 on 4 rows, emit [4, T 64]) held against their twins;
+     meanwhile `cli serve` of phase 16's zip in its own process (one rank
+     on the one card: it spawns nothing) answers config 3's request,
+     /get_skeleton and a bad body (400); `cli serve --nproc 2` of the
+     reference-scale walk graph's zip (two ranks sharing the card over
+     gloo) answers /set_configuration to the service's config and the
+     batch of the 8 and the keyframe request as one process's make_app
+     does (frames within 1e-5 after the BVH round trip, the same frame
+     counts and flags), prints each rank's launches (B1, B2, B5 and emit
+     on both) and stops both ranks; `cli train --nproc 2` on the 20 clips
+     writes one model, within 1e-5 of the direct call's.  Phase 12's
+     profiles add the batch endpoint's direct call.
 The checks of phases 3-8 and 13-17 run first (18 after 11), but their
 kernel lines are printed after phase 18: a kernel's device time comes from a profiler trace, and a
 process that has taken one pays more host time per launch afterwards, so the
@@ -3500,7 +3510,10 @@ def phase_cluster(device, smi: str):
 
 
 # Phase 18: the service edge (serve/rest.py) and the process group
-SERVICE_REPS = 2  # timed calls of each endpoint, after one that warms
+# timed calls of each endpoint, after one that warms: one keeps the script
+# inside half its limit with the ranks' runs; the service's own cost is
+# within the host's spread at one or two
+SERVICE_REPS = 1
 SERVICE_KERNELS = ("score_locomotion_candidates",) + REQUEST_KERNELS
 # an endpoint's frames and the direct call's, both parsed back from BVH
 # text (6 decimals of a cm and of a degree): phase 16's round-trip bound
@@ -3624,10 +3637,11 @@ def _service_calls():
          run(REQUEST_TIMED), 1)]
 
 
-def _hold_answer(name, got: dict, want: dict, min_frames: int = 30):
+def _hold_answer(name, got: dict, want: dict, min_frames: int = 30,
+                 atol: float = SERVICE_BVH_ATOL):
     """An endpoint's JSON answer against the direct call's: every BVH
-    within SERVICE_BVH_ATOL once parsed back, the other fields equal.
-    -> the worst BVH difference."""
+    within atol once parsed back, the other fields equal.  -> the worst
+    BVH difference."""
     worst = 0.0
     pairs = ([(got, want)] if "results" not in want
              else list(zip(got["results"], want["results"])))
@@ -3642,11 +3656,10 @@ def _hold_answer(name, got: dict, want: dict, min_frames: int = 30):
         if "bvh" in w:
             d, _ = _bvh_diff(g["bvh"], w["bvh"])
             worst = max(worst, d)
-            if not d <= SERVICE_BVH_ATOL or len(_bvh_frames(g["bvh"])) \
-                    <= min_frames:
+            if not d <= atol or len(_bvh_frames(g["bvh"])) <= min_frames:
                 _fail(f"service {name}: the endpoint's frames differ from "
-                      f"the direct call's by {d:.3e} (tol "
-                      f"{SERVICE_BVH_ATOL}) or are too few")
+                      f"the direct call's by {d:.3e} (tol {atol}) or are "
+                      "too few")
     return worst
 
 
@@ -3760,7 +3773,8 @@ def _check_terrain(ctx):
 
 def _hold_b1(stacked, skel, device, shapes, held_b1):
     """B1 at each recorded (C, N, table rows) shape: the shapes phase 3
-    held are named, the others held now against the twin."""
+    held are named, the others held now against the twin, with the twin's
+    time and the bound, and their kernel lines queued."""
     out = []
     for (c, n, g8), launched in sorted(
             shapes["score_locomotion_candidates"].items()):
@@ -3773,9 +3787,21 @@ def _hold_b1(stacked, skel, device, shapes, held_b1):
         err, summary = _check_scores(
             "B1", kernels.score_locomotion_candidates(*args),
             kernels.score_locomotion_candidates_ref(*args))
-        print(f"service B1 [{c}, {n}, {g8}]: {summary}", flush=True)
-        out.append(dict(shape=f"[{c}, {n}, {g8}]", launches=launched,
-                        max_abs_err=err))
+        bound_ms, by, frac = _selection_bound(*args)
+        r = dict(shape=f"[{c}, {n}, {g8}]", launches=launched,
+                 max_abs_err=err,
+                 plain_ms=_time_ms(lambda args=args: kernels
+                                   .score_locomotion_candidates_ref(*args),
+                                   3),
+                 bound_ms=bound_ms, bound_by=by, library_ms=None)
+        out.append(r)
+        _kernel_line(f"service B1 score_locomotion_candidates [{c}, {n}, "
+                     f"{g8}]: {summary}",
+                     lambda args=args: kernels.score_locomotion_candidates(
+                         *args), 20, bound_ms,
+                     f"(bound_ms={bound_ms:.4f}, {by}; the searches read "
+                     f"{frac:.3f} of the table rows) twin_ms="
+                     f"{r['plain_ms']:.4f}", r)
     return out
 
 
@@ -3812,13 +3838,14 @@ def _dtw(skel, clips, device):
 
 def _group_rank(rank: int, tmp: str, device: str):
     """One rank of the two-rank gloo group (spawned), on `device`: the
-    serving crowd and the DTW over the group -> out<rank>.pt."""
+    serving crowd (its launches and kernel shapes recorded) and the DTW
+    over the group -> out<rank>.pt."""
     import datetime
     import os
 
     import torch
     import torch.distributed as dist
-    from morphablegraphs_tpu_torch.ops import cuda_build
+    from morphablegraphs_tpu_torch.ops import cuda_build, kernels
     device = torch.device(device)
     sync = torch.cuda.synchronize if device.type == "cuda" else (
         lambda: None)
@@ -3833,14 +3860,21 @@ def _group_rank(rank: int, tmp: str, device: str):
         clips = torch.load(os.path.join(tmp, "clips.pt"), weights_only=False)
         graph, _ = _ref_model(device)
         sync()
+        shapes = {k: {} for k in SERVICE_KERNELS}
+        saved = _record_shapes(shapes)
+        kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        frames, crowd = _serving_outputs(graph, device, dist.group.WORLD)
-        sync()
+        try:
+            frames, crowd = _serving_outputs(graph, device, dist.group.WORLD)
+            sync()
+        finally:
+            _restore_kernels(saved)
+        launches = kernels.launch_counts()
         t1 = time.perf_counter()
         warps, warped = _dtw(graph.skeleton, clips, device)
         sync()
         torch.save(dict(frames=frames, crowd=crowd, warps=warps,
-                        warped=warped,
+                        warped=warped, shapes=shapes, launches=launches,
                         seconds=(t1 - t0, time.perf_counter() - t1)),
                    os.path.join(tmp, f"out{rank}.pt"))
     finally:
@@ -3861,12 +3895,36 @@ def _crowds_equal(a, b) -> float:
                float(((ca[3] - cb[3]).abs() / (1.0 + cb[3].abs())).max()))
 
 
+def _alive(pid: int) -> bool:
+    try:
+        stat = pathlib.Path(f"/proc/{pid}/stat").read_text()
+    except OSError:
+        return False
+    return stat.rsplit(")", 1)[1].split()[0] != "Z"
+
+
+def _children(pid: int) -> list:
+    """The live processes whose parent is pid."""
+    out = []
+    for d in pathlib.Path("/proc").iterdir():
+        if not d.name.isdigit():
+            continue
+        try:
+            fields = (d / "stat").read_text().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[1]) == pid and fields[0] != "Z":
+            out.append(int(d.name))
+    return out
+
+
 class _CliServer:
     """`python -m morphablegraphs_tpu_torch.serve.cli serve zip --port P`
     in its own process (on the card, its default; on the CPU only when
-    `device` is), started at construction."""
+    `device` is), over `nproc` ranks when given, started at
+    construction."""
 
-    def __init__(self, zip_path: str, device):
+    def __init__(self, zip_path: str, device, nproc=None):
         import queue
         import socket
         import threading
@@ -3878,34 +3936,45 @@ class _CliServer:
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "morphablegraphs_tpu_torch.serve.cli",
              "serve", zip_path, "--port", str(self.port)]
-            + (["--device", "cpu"] if str(device) == "cpu" else []),
+            + (["--device", "cpu"] if str(device) == "cpu" else [])
+            + ([] if nproc is None else ["--nproc", str(nproc)]),
             cwd=str(pathlib.Path(__file__).resolve().parent),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         self.lines = queue.Queue()
-        threading.Thread(target=lambda: [self.lines.put(x)
-                                         for x in self.proc.stdout],
-                         daemon=True).start()
+        self.seen = []
+        self.t_line = self.t0  # when the last line read was printed
+        threading.Thread(target=lambda: [
+            self.lines.put((time.perf_counter(), x))
+            for x in self.proc.stdout], daemon=True).start()
+
+    def next_line(self, prefix: str) -> str:
+        """The next line of its output that starts with prefix."""
+        import queue
+        while True:
+            try:
+                self.t_line, line = self.lines.get(timeout=SERVER_START_S)
+            except queue.Empty:
+                _fail(f"`cli serve` printed no line {prefix!r} in "
+                      f"{SERVER_START_S} s: {''.join(self.seen)[-2000:]}")
+            self.seen.append(line)
+            if line.startswith(prefix):
+                return line
+            if self.proc.poll() is not None:
+                _fail(f"`cli serve` exited {self.proc.returncode}: "
+                      f"{''.join(self.seen)[-2000:]}")
+
+    def wait_up(self) -> float:
+        """Its serving line -> the seconds from its start to that line."""
+        line = self.next_line("serving morphablegraphs on :")
+        if line.strip() != f"serving morphablegraphs on :{self.port}":
+            _fail(f"`cli serve` serves on another port: {line.strip()}")
+        return self.t_line - self.t0
 
     def check(self, smi: str):
         """Wait for its serving line, then phase 13's config-3 request,
-        /get_skeleton and a bad JSON body (400)."""
-        import queue
-        seen = []
-        while True:
-            try:
-                line = self.lines.get(timeout=SERVER_START_S)
-            except queue.Empty:
-                _fail(f"`cli serve` printed no serving line in "
-                      f"{SERVER_START_S} s: {''.join(seen)[-2000:]}")
-            seen.append(line)
-            if line.startswith("serving morphablegraphs on :"):
-                break
-            if self.proc.poll() is not None:
-                _fail(f"`cli serve` exited {self.proc.returncode}: "
-                      f"{''.join(seen)[-2000:]}")
-        if line.strip() != f"serving morphablegraphs on :{self.port}":
-            _fail(f"`cli serve` serves on another port: {line.strip()}")
-        t_up = time.perf_counter() - self.t0
+        /get_skeleton and a bad JSON body (400); one rank on the one card
+        spawns no process."""
+        t_up = self.wait_up()
         base = f"http://127.0.0.1:{self.port}"
         t1 = time.perf_counter()
         got = [_http(base, "POST", "/run_morphablegraphs", REQUEST_CONFIG3)]
@@ -3915,54 +3984,266 @@ class _CliServer:
         status = [g[0] for g in got]
         n_frames = (len(_bvh_frames(json.loads(got[0][1])["bvh"]))
                     if status[0] == 200 else 0)
+        spawned = _children(self.proc.pid)
         print(f"service cli serve ({smi}): `cli serve {self.name} --port "
               f"{self.port}` up in {t_up:.2f} s (a fresh process: imports, "
               f"the card, load_graph); config 3's request {t_req:.3f} s (its "
               f"first) with {n_frames} frames; statuses {status} (expected "
-              f"[200, 200, 400])", flush=True)
+              f"[200, 200, 400]); processes it spawned {spawned} (one rank: "
+              f"none)", flush=True)
         if status != [200, 200, 400] or n_frames <= 30 or \
                 b"HIERARCHY" not in got[1][1]:
             _fail(f"`cli serve` answered {status}")
+        if spawned or any(" ranks over " in x for x in self.seen):
+            _fail("`cli serve` at one rank spawned ranks")
 
-    def stop(self):
+    def stop(self) -> int:
+        """SIGTERM (every rank stops) -> the exit code."""
         self.proc.terminate()
         try:
-            self.proc.wait(timeout=60)
+            return self.proc.wait(timeout=60)
         except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+            _fail("`cli serve` did not stop in 60 s")
+
+
+def _ranks_calls():
+    """The two-rank server's calls: /set_configuration to the service's
+    config, then the batch of the 8 trajectory requests and the keyframe
+    request."""
+    return [("/set_configuration", _service_config()),
+            ("/run_morphablegraphs_batch",
+             {"requests": _serving_requests() + [REQUEST_KEYFRAME]})]
+
+
+def _ranks_twin(zip_path: str, device):
+    """_ranks_calls on one process: make_app over a fresh MGContext on
+    the same zip -> [(status, answer)] and the seconds of each call."""
+    import torch
+    from morphablegraphs_tpu_torch.models.graph import load_graph
+    from morphablegraphs_tpu_torch.serve import rest
+    app = rest.make_app(rest.MGContext(load_graph(zip_path, device=device),
+                                       device=device))
+    out, walls = [], []
+    for route, body in _ranks_calls():
+        t0 = time.perf_counter()
+        status, _, payload = app("POST", route, json.dumps(body).encode())
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        out.append((status, json.loads(payload)))
+    return out, walls
+
+
+def _check_cli_ranks(server, twin, twin_walls, smi: str):
+    """The two-rank `cli serve` (the ranks share the one card over gloo):
+    _ranks_calls against the one-process twin's answers (frames within
+    GROUP_FRAMES_ATOL after the BVH round trip, the same frame counts and
+    flags), each rank's launches of B1, B2, B5 and the emit kernel in the
+    batch (its printed line), then a stop that ends both ranks.  -> the
+    ranks' launches."""
+    t_up = server.wait_up()
+    layout = next((x for x in server.seen if " ranks over " in x), "")
+    pids = [int(p) for p in re.findall(r"pid (\d+)", layout)]
+    if len(pids) != GROUP_RANKS or "gloo" not in layout:
+        _fail(f"`cli serve --nproc {GROUP_RANKS}` printed no layout of "
+              f"{GROUP_RANKS} gloo ranks: {layout!r}")
+    base = f"http://127.0.0.1:{server.port}"
+    walls, worst = [], 0.0
+    for (route, body), (w_status, want) in zip(_ranks_calls(), twin):
+        t0 = time.perf_counter()
+        status, payload = _http(base, "POST", route, body)
+        walls.append(time.perf_counter() - t0)
+        if status != w_status or status != 200:
+            _fail(f"`cli serve --nproc {GROUP_RANKS}` {route} answered "
+                  f"{status} (one process {w_status}): {payload[:300]!r}")
+        worst = max(worst, _hold_answer(f"ranks {route}", json.loads(payload),
+                                        want, atol=GROUP_FRAMES_ATOL))
+    flags = [r["batched"] for r in json.loads(payload)["results"]]
+    if flags != [True] * 8 + [False]:
+        _fail(f"the two-rank batch's flags are {flags}")
+    line = server.next_line("batch of 8 over 2 ranks: ")
+    launches = json.loads(line.split("launches ", 1)[1])
+    if len(launches) != GROUP_RANKS or any(
+            r.get(k, 0) <= 0 for r in launches for k in SERVICE_KERNELS):
+        _fail(f"a rank of `cli serve --nproc {GROUP_RANKS}` did not launch "
+              f"{SERVICE_KERNELS}: {line.strip()}")
+    rc = server.stop()
+    left = [p for p in pids if _alive(p)]
+    print(f"service cli ranks ({smi}): `cli serve --nproc {GROUP_RANKS}` "
+          f"({layout.strip()}) up in {t_up:.2f} s; /set_configuration and "
+          f"the batch (8 + the keyframe request) answered in "
+          f"{[round(w, 3) for w in walls]} s, one process in "
+          f"{[round(w, 3) for w in twin_walls]} s (each server's first "
+          f"batch); frames within {worst:.2e} of one process's (tol "
+          f"{GROUP_FRAMES_ATOL}), flags {flags}; {line.strip()}; the stop: "
+          f"exit code {rc}, ranks left {left}", flush=True)
+    if rc != 0 or left:
+        _fail(f"`cli serve --nproc {GROUP_RANKS}` stopped with {rc}, ranks "
+              f"left {left}")
+    return launches
+
+
+def _reference_zip(path: str) -> str:
+    """The reference-scale walk graph (`synthetic.
+    make_reference_scale_graph_dict`) as a graph zip -> its path."""
+    from morphablegraphs_tpu_torch.models import skeleton as sk
+    from morphablegraphs_tpu_torch.models.zip_writer import write_graph_zip
+    from morphablegraphs_tpu_torch.utils import synthetic
+    gd = synthetic.make_reference_scale_graph_dict()
+    walk = gd["subgraphs"]["walk"]
+    return write_graph_zip(
+        path, sk.load_bvh(synthetic.REF_BVH)[0],
+        {"walk": {"nodes": {mp: n["mm"] for mp, n in walk["nodes"].items()},
+                  "info": walk["info"]}},
+        gd["transitions"], start_node=tuple(gd["startNode"]))
+
+
+def _model_gaps(a: dict, b: dict, prefix="") -> dict:
+    """{dotted key: the largest difference over max(1, |b|)} of two model
+    JSONs' numeric leaves, every field but the covariances' eigh factors
+    (gmm.eigen: a function of gmm.covars, whose vectors turn freely inside
+    a near-degenerate eigenspace); a field missing or of another shape ->
+    inf."""
+    out = {}
+    for k in set(a) | set(b):
+        va, vb = a.get(k), b.get(k)
+        if isinstance(va, dict) and isinstance(vb, dict):
+            out.update(_model_gaps(va, vb, f"{prefix}{k}."))
+            continue
+        if prefix + k == "gmm.eigen":
+            continue
+        try:
+            xa, xb = np.asarray(va, np.float64), np.asarray(vb, np.float64)
+        except (TypeError, ValueError):
+            continue
+        out[prefix + k] = (float(np.abs(xa - xb).max(initial=0.0)
+                                 / max(1.0, np.abs(xb).max(initial=0.0)))
+                           if xa.shape == xb.shape else float("inf"))
+    return out
+
+
+class _CliTrain:
+    """`python -m morphablegraphs_tpu_torch.serve.cli train CLIPS walk
+    --output OUT/walk_mm.json --nproc N` on the card (on the CPU only
+    when `device` is), started at construction; its output goes to OUT/../train.log and a thread
+    records when it exits."""
+
+    def __init__(self, clips: str, out_dir, nproc: int, device):
+        import threading
+        out_dir = pathlib.Path(out_dir)
+        out_dir.mkdir()
+        self.model = out_dir / "walk_mm.json"
+        self.log = out_dir.parent / "train.log"
+        self.t0 = time.perf_counter()
+        with open(self.log, "w") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "morphablegraphs_tpu_torch.serve.cli",
+                 "train", clips, "walk_leftStance", "--output",
+                 str(self.model), "--nproc", str(nproc)]
+                + (["--device", "cpu"] if str(device) == "cpu" else []),
+                cwd=str(pathlib.Path(__file__).resolve().parent),
+                stdout=log, stderr=subprocess.STDOUT)
+        self.wall = None
+
+        def wait():
+            self.proc.wait()
+            self.wall = time.perf_counter() - self.t0
+        self.waiter = threading.Thread(target=wait, daemon=True)
+        self.waiter.start()
+
+    def stop(self):
+        if self.proc.poll() is None:
             self.proc.kill()
             self.proc.wait(timeout=60)
 
 
+def _check_cli_train(train: _CliTrain, direct_path: str, direct_s: float,
+                     smi: str):
+    """`cli train --nproc 2` on the card (its two ranks share it over
+    gloo): exit code 0, its layout and the model's path printed once,
+    exactly one model file beside its sample BVH, the model within
+    GROUP_FRAMES_ATOL (relative to its scale) of the direct call's, every
+    field but the covariances' eigh factors."""
+    train.waiter.join(timeout=SERVER_START_S)
+    if train.wall is None:
+        _fail(f"`cli train --nproc {GROUP_RANKS}` ran over {SERVER_START_S} s")
+    out = train.log.read_text()
+    lines = out.splitlines()
+    model = train.model
+    files = sorted(p.name for p in model.parent.iterdir())
+    if train.proc.returncode != 0 or lines.count(str(model)) != 1 or \
+            not any(f"{GROUP_RANKS} ranks over gloo" in x for x in lines) \
+            or files != ["walk_mm.json", "walk_sample.bvh"]:
+        _fail(f"`cli train --nproc {GROUP_RANKS}` exited "
+              f"{train.proc.returncode} with files {files}: {out[-2000:]}")
+    with open(model) as f, open(direct_path) as g:
+        gaps = _model_gaps(json.load(f), json.load(g))
+    worst = max(gaps.values())
+    print(f"service cli train ({smi}): `cli train --nproc {GROUP_RANKS}` "
+          f"on {GROUP_CLIPS} clips ("
+          f"{next(x for x in lines if ' ranks over ' in x).strip()}) in "
+          f"{train.wall:.2f} s (a fresh process, its ranks spawned); the "
+          f"direct call "
+          f"{direct_s:.2f} s; files {files}; the model within {worst:.2e} "
+          f"of the direct call's over {len(gaps)} fields (tol "
+          f"{GROUP_FRAMES_ATOL}, relative to each field's scale; "
+          f"{sum(v == 0.0 for v in gaps.values())} fields equal)",
+          flush=True)
+    if not worst <= GROUP_FRAMES_ATOL:
+        _fail("the model of `cli train --nproc 2` differs from the direct "
+              f"call's: { {k: v for k, v in gaps.items() if v > 0} }")
+
+
 def phase_service(graph, stacked, device, smi: str, zip_path: str, held_b1):
-    """Phase 18: the endpoints in process; then, while two spawned gloo
-    ranks split the serving crowd and a 20-clip DTW and `cli serve` starts
-    in its own process, the serving crowd over a world-size-1 NCCL group
-    against the direct call, the CLI server's answers, and the ranks'
-    results against the one-process ones.  -> (launches per endpoint,
-    shapes, held, the batch profile's run and wall, the phase's
+    """Phase 18: `cli serve` at one rank and over two ranks and `cli train
+    --nproc 2` (on 20 clips) start in their own processes, and the
+    endpoints run in process beside their start; then, while two spawned
+    gloo ranks split the serving crowd and a 20-clip DTW: the serving
+    crowd over a
+    world-size-1 NCCL group against the direct call, the one-process twins
+    of the two-rank server's calls and of the training, the CLI servers'
+    answers, the trained model, and the ranks' results against the
+    one-process ones; the kernels at the ranks' shapes against their
+    twins.  -> (launches per endpoint, shapes, held, the batch profile's
+    run and wall, the ranks' launches, shapes and held, the phase's
     seconds)."""
     import os
 
     import torch
     import torch.distributed as dist
     import torch.multiprocessing as mp
+    from morphablegraphs_tpu_torch.models import skeleton as sk
+    from morphablegraphs_tpu_torch.serve import cli
     t_phase = time.perf_counter()
-    launches, shapes, held, profiled, batch_wall = phase_service_endpoints(
-        graph, stacked, device, smi, held_b1)
-    t_endpoints = time.perf_counter() - t_phase
-
-    direct = _serving_outputs(graph, device)
     skel, clips = _train_clip_frames(device, GROUP_CLIPS)
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     with tempfile.TemporaryDirectory() as tmp:
+        tmp_p = pathlib.Path(tmp)
         torch.save(clips, os.path.join(tmp, "clips.pt"))
-        t0 = time.perf_counter()
-        group = mp.start_processes(_group_rank, args=(tmp, str(device)),
-                                   nprocs=GROUP_RANKS, join=False,
-                                   start_method="spawn")
+        clip_dir = tmp_p / "clips"
+        clip_dir.mkdir()
+        for name, f in clips.items():
+            sk.write_bvh(skel, f, str(clip_dir / f"{name}.bvh"))
+        ref_zip = _reference_zip(str(tmp_p / "ref_walk.zip"))
+        # the CLI servers and the trainer start first: their start
+        # (imports, the card, the graph) runs beside the endpoints' calls
         server = _CliServer(zip_path, device)
+        ranks_server = _CliServer(ref_zip, device, nproc=GROUP_RANKS)
+        train = _CliTrain(str(clip_dir), tmp_p / "ranks_train", GROUP_RANKS,
+                          device)
+        group = None
         try:
+            (launches, shapes, held, profiled,
+             batch_wall) = phase_service_endpoints(graph, stacked, device,
+                                                   smi, held_b1)
+            t_endpoints = time.perf_counter() - t_phase
+            direct = _serving_outputs(graph, device)
+            t0 = time.perf_counter()
+            group = mp.start_processes(_group_rank, args=(tmp, str(device)),
+                                       nprocs=GROUP_RANKS, join=False,
+                                       start_method="spawn")
             t1 = time.perf_counter()
             backend = "nccl" if torch.device(device).type == "cuda" \
                 else "gloo"
@@ -3988,14 +4269,26 @@ def phase_service(graph, stacked, device, smi: str, zip_path: str, held_b1):
             t1 = time.perf_counter()
             one_dtw = _dtw(skel, clips, device)
             t_dtw = time.perf_counter() - t1
+            twin, twin_walls = _ranks_twin(ref_zip, device)
+            t1 = time.perf_counter()
+            direct_model = cli.train_model(
+                str(clip_dir), "walk_leftStance",
+                str(tmp_p / "direct_mm.json"), device=device)
+            torch.cuda.synchronize()
+            t_train = time.perf_counter() - t1
             server.check(smi)
+            cli_launches = _check_cli_ranks(ranks_server, twin, twin_walls,
+                                            smi)
+            _check_cli_train(train, direct_model, t_train, smi)
             while not group.join(timeout=600):
                 pass
         except Exception as e:  # a rank that raised, or the NCCL group
-            _fail(f"phase 18's groups: {type(e).__name__}: {e}")
+            _fail(f"phase 18: {type(e).__name__}: {e}")
         finally:
             server.stop()
-            for p in group.processes:
+            ranks_server.stop()
+            train.stop()
+            for p in group.processes if group is not None else ():
                 if p.is_alive():
                     p.terminate()
         t_group = time.perf_counter() - t0
@@ -4009,24 +4302,48 @@ def phase_service(graph, stacked, device, smi: str, zip_path: str, held_b1):
         worst = max(worst, max(float(np.abs(np.asarray(o["warped"][k])
                                             - np.asarray(v)).max())
                                for k, v in one_dtw[1].items()))
+    rank_launches = [{k: o["launches"][k] for k in SERVICE_KERNELS}
+                     for o in outs]
     print(f"service group (b) ({smi}): {GROUP_RANKS} gloo ranks spawned on "
           f"the one card (NCCL refuses two ranks on one card; "
           f"{torch.cuda.device_count()} card(s) visible) split the serving crowd {8 // GROUP_RANKS}/"
           f"{8 // GROUP_RANKS} and the {GROUP_CLIPS}-clip DTW's pairs: "
-          f"{t_group:.2f} s from spawn to join (group (a) and the CLI "
-          f"server's check ran meanwhile), each rank's crowd and DTW s "
+          f"{t_group:.2f} s from spawn to join (group (a), the CLI "
+          f"servers and the CLI training ran meanwhile), each rank's crowd "
+          f"and DTW s "
           f"{[tuple(round(s, 3) for s in o['seconds']) for o in outs]} "
           f"(a fresh process's first crowd), the one-process DTW "
           f"{t_dtw:.3f} s; frames within {worst:.2e} of the one-process "
           f"results (tol {GROUP_FRAMES_ATOL}), {warp_diff} warping "
-          f"functions different", flush=True)
+          f"functions different; each rank's launches of B1/B2/B5/emit "
+          f"{[tuple(r[k] for k in SERVICE_KERNELS) for r in rank_launches]}",
+          flush=True)
     if not worst <= GROUP_FRAMES_ATOL or warp_diff:
         _fail("the gloo group's crowd or DTW differs from one process's")
+    if any(r[k] <= 0 for r in rank_launches for k in SERVICE_KERNELS):
+        _fail(f"a rank of the group did not launch {SERVICE_KERNELS}")
+    # the kernels at the shapes a rank gives them, against their twins
+    rank_shapes = {k: {} for k in SERVICE_KERNELS}
+    for o in outs:
+        for k, seen in o["shapes"].items():
+            for shape, n in seen.items():
+                rank_shapes[k][shape] = rank_shapes[k].get(shape, 0) + n
+    print("service rank kernel shapes (launches over both ranks): "
+          f"{json.dumps({k: {str(s): n for s, n in v.items()} for k, v in rank_shapes.items()})}",
+          flush=True)
+    prim = graph.nodes[("walk", "leftStance")].primitive.to(device)
+    rank_held = _hold_shapes(prim, device, rank_shapes,
+                             {k: set() for k in REQUEST_KERNELS},
+                             "service rank", seed=47)
+    rank_held["score_locomotion_candidates"] = _hold_b1(
+        stacked, graph.skeleton, device, rank_shapes, held_b1)
+    ranks = dict(launches=rank_launches, cli_launches=cli_launches,
+                 shapes=rank_shapes, held=rank_held)
     t = time.perf_counter() - t_phase
     print(f"phase 18 seconds: {t:.1f} (endpoints {t_endpoints:.1f}, the "
-          f"groups and the CLI server {t - t_endpoints:.1f}) ({smi})",
-          flush=True)
-    return launches, shapes, held, profiled, batch_wall, t
+          f"groups, the CLI servers and the CLI training "
+          f"{t - t_endpoints:.1f}) ({smi})", flush=True)
+    return launches, shapes, held, profiled, batch_wall, ranks, t
 
 
 def _trace_summary(prof, device_type, prefix="walk."):
@@ -4216,8 +4533,8 @@ def main():
     randoms = {name: phase_random_crowd(name, stacked, device, smi)
                for name in ("segments", "concat", "canonical")}
     (service_counts, service_shapes, service_held, service_run,
-     service_wall, _) = phase_service(graph, stacked, device, smi,
-                                      service_zip, set(b1_times))
+     service_wall, service_ranks, _) = phase_service(
+        graph, stacked, device, smi, service_zip, set(b1_times))
     service_tmp.cleanup()
     _flush_kernel_lines()
     for name in ("root", "ee", "lm_exact", "families"):
@@ -4300,7 +4617,16 @@ def main():
              "shapes": {str(list(k)): n
                         for k, n in service_shapes[name].items()},
              "held": service_held[name]}}
-            if name in service_shapes else {})}
+            if name in service_shapes else {}),
+         **({"service_ranks": {
+             "launches_per_rank": [r[name] for r in
+                                   service_ranks["launches"]],
+             "cli_serve_launches_per_rank": [
+                 r.get(name, 0) for r in service_ranks["cli_launches"]],
+             "shapes": {str(list(k)): n for k, n in
+                        service_ranks["shapes"][name].items()},
+             "held": service_ranks["held"][name]}}
+            if name in service_ranks["shapes"] else {})}
         for name, source, line, counts in table]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

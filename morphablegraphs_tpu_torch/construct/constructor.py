@@ -259,29 +259,36 @@ class MotionModelConstructor:
     def set_timewarping(self, temporal_data: dict):
         self._temporal_data = dict(temporal_data)
 
+    def align(self, mean_key=None):
+        """The spatial alignment, then the temporal one unless a time
+        warping was set (over the ranks of a default process group of
+        several, `align_frames_temporally`); construct_model's first
+        stages."""
+        t0 = time.perf_counter()
+        aligned = align_frames_spatially(self._input_motions,
+                                         device=self.device)
+        self.timings["spatial_alignment"] = time.perf_counter() - t0
+        if self._temporal_data is None:
+            t0 = time.perf_counter()
+            dtw_t = {}
+            (self._aligned_frames, self._temporal_data,
+             contact_kf) = align_frames_temporally_split(
+                self.skeleton, aligned, self._sections, mean_key,
+                self.device, dtw_t)
+            self._keyframes.update(contact_kf)
+            self.dtw_cost = dtw_t.get("dtw_cost", 0.0)
+            # the point clouds and the warps count with the grids
+            self.timings["dtw_dp"] = dtw_t.get("dtw_dp", 0.0)
+            self.timings["dtw_grids"] = (time.perf_counter() - t0
+                                         - self.timings["dtw_dp"])
+        else:
+            self._aligned_frames = aligned
+
     def construct_model(self, name: str, version: int = 3, mean_key=None,
                         align_frames: bool = True) -> dict:
         self.timings = {}
         if align_frames or self._aligned_frames is None:
-            t0 = time.perf_counter()
-            aligned = align_frames_spatially(self._input_motions,
-                                             device=self.device)
-            self.timings["spatial_alignment"] = time.perf_counter() - t0
-            if self._temporal_data is None:
-                t0 = time.perf_counter()
-                dtw_t = {}
-                (self._aligned_frames, self._temporal_data,
-                 contact_kf) = align_frames_temporally_split(
-                    self.skeleton, aligned, self._sections, mean_key,
-                    self.device, dtw_t)
-                self._keyframes.update(contact_kf)
-                self.dtw_cost = dtw_t.get("dtw_cost", 0.0)
-                # the point clouds and the warps count with the grids
-                self.timings["dtw_dp"] = dtw_t.get("dtw_dp", 0.0)
-                self.timings["dtw_grids"] = (time.perf_counter() - t0
-                                             - self.timings["dtw_dp"])
-            else:
-                self._aligned_frames = aligned
+            self.align(mean_key)
         t0 = time.perf_counter()
         self._run_dimension_reduction()
         t1 = time.perf_counter()

@@ -3,13 +3,17 @@
 The JAX package splits the character axis over a device mesh: per-character
 inputs are sharded, the stacked graph is replicated, and the characters
 never communicate.  The port runs one process per card, joined in a
-torch.distributed process group (`torchrun --nproc_per_node N`, or any
-group the caller initializes): every rank is handed the whole crowd, takes
-its contiguous rows of the padded crowd, with the same rows of the injected
-draws, on its own device, and walks them with the graph and the constraint
-sets replicated.  Nothing is communicated inside the walk; one all_gather
-per output array returns the whole crowd to every rank.  NCCL gathers the
-CUDA tensors in place, gloo gathers CPU copies.
+torch.distributed process group (`group.launch` starts one over every
+visible card, as `make_mesh` spans them; `torchrun --nproc_per_node N`, or
+any group the caller initializes, serves too): every rank is handed the
+whole crowd, takes its contiguous rows of the padded crowd, with the same
+rows of the injected draws, on its own device, and walks them with the
+graph and the constraint sets replicated.  Nothing is communicated inside
+the walk; one all_gather per output array returns the whole crowd to every
+rank.  NCCL gathers the CUDA tensors in place, gloo gathers CPU copies.
+With a status group (the status group of `group.launch`), the ranks first
+agree that every rank's walk succeeded (`group.agree`), so that a rank that
+raised never leaves the others waiting in a gather.
 
 Without a group both entry points run the whole crowd on their one device.
 `devices` names this process's device; a list of several is refused: one
@@ -30,6 +34,7 @@ from ..models.skeleton import Skeleton
 from ..ops import spline_path
 from ..synthesis import constrained_walk as cw
 from ..synthesis import walk as walk_mod
+from . import group as group_mod
 
 
 def _single_device(devices: Sequence) -> torch.device:
@@ -41,7 +46,8 @@ def _single_device(devices: Sequence) -> torch.device:
         raise NotImplementedError(
             f"one process drives one device, and {len(devices)} were given: "
             "run one process per device in a torch.distributed process "
-            "group and pass it as group=, each rank naming its own device")
+            "group (parallel.launch starts one over every visible card) and "
+            "pass it as group=, each rank naming its own device")
     return devices[0]
 
 
@@ -84,7 +90,11 @@ def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
         on = x.to(torch.device("cuda", torch.cuda.current_device()))
     on = on.contiguous()
     parts = [torch.empty_like(on) for _ in range(world)]
-    dist.all_gather(parts, on, group=group)
+    try:
+        dist.all_gather(parts, on, group=group)
+    except RuntimeError as e:
+        raise group_mod.RankError(f"the process group lost a rank: {e}") \
+            from e
     return torch.cat(parts).to(x.device)
 
 
@@ -114,15 +124,17 @@ def constrained_crowd_sharded(devices: Sequence, skeleton: Skeleton,
                               draws: Callable[[int], walk_mod.StepDraws],
                               step_scs=None,
                               cfg: Optional[cw.WalkConfig] = None,
-                              group=None):
+                              group=None, status_group=None):
     """The full-constraint crowd (`constrained_walk_full_crowd`) with
     per-character paths [C] and start_ids [C], split over the ranks of
     `group`.  The walk's contract guards run first; a character count that
     does not divide the ranks is padded by repeating the first character
-    (its draws too) and the padding is sliced off the outputs.  Returns
-    (segments, n_frames, node_ids, errors) as `constrained_walk_full_crowd`,
-    with its fifth array under cfg.return_pre_lm_err, for the whole crowd
-    on every rank."""
+    (its draws too) and the padding is sliced off the outputs.  With
+    `status_group` the ranks agree on every rank's outcome before they
+    gather (`group.agree`: a failure on any rank raises on every rank).
+    Returns (segments, n_frames, node_ids, errors) as
+    `constrained_walk_full_crowd`, with its fifth array under
+    cfg.return_pre_lm_err, for the whole crowd on every rank."""
     cfg = cfg or cw.WalkConfig()
     if step_scs is None:
         step_scs = cw.default_step_scs(skeleton, n_steps)
@@ -130,12 +142,21 @@ def constrained_crowd_sharded(devices: Sequence, skeleton: Skeleton,
                            compiled.step_scs_root_only(step_scs))
     n_chars = start_ids.shape[0]
     dev = _single_device(devices)
-    paths = spline_path.PathSpline(**{
-        f.name: rank_rows(getattr(paths, f.name), group).to(dev)
-        for f in dataclasses.fields(paths)})
-    out = cw.constrained_walk_full_crowd(
-        skeleton, g.to(dev), paths, rank_rows(start_ids, group).to(dev),
-        n_steps, _draws_on(draws, dev, group), step_scs=step_scs, cfg=cfg)
+    error = None
+    try:
+        paths = spline_path.PathSpline(**{
+            f.name: rank_rows(getattr(paths, f.name), group).to(dev)
+            for f in dataclasses.fields(paths)})
+        out = cw.constrained_walk_full_crowd(
+            skeleton, g.to(dev), paths, rank_rows(start_ids, group).to(dev),
+            n_steps, _draws_on(draws, dev, group), step_scs=step_scs,
+            cfg=cfg)
+    except Exception as e:  # every rank learns of it before the gathers
+        if status_group is None:
+            raise
+        error = e
+    if status_group is not None:
+        group_mod.agree(status_group, error)
     if group is not None:
         out = tuple(all_gather_rows(o, group) for o in out)
     return tuple(o[:n_chars] for o in out)

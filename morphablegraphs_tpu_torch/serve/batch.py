@@ -11,7 +11,10 @@ sets carry the locomotion family only, n_samples then rounded up to its
 tile of 128, root_only derived from the constraint sets, and the exact LM
 (lm_frozen=False), whose solves go through kernel B2.  Given a
 torch.distributed process group, every rank is handed the same requests
-and walks its rows of the crowd on its own device (`parallel/`).  Without
+and walks its rows of the crowd on its own device (`parallel/`); with a
+status group as well (the status group of `parallel.launch`) the ranks
+agree that each of them built its inputs and walked its rows before they
+gather, so a failure on one rank raises on every rank.  Without
 full_constraints it is the boundary-row `constrained_walk_crowd`.
 """
 
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from .. import parallel
+from ..parallel import group as group_mod
 from ..constraints import compiled
 from ..constraints.input_reader import read_input
 from ..models.graph import MotionStateGraph, stack_graph
@@ -68,15 +72,19 @@ class BatchedGenerator:
     rounded up to the selection kernel's tile of 128); False keeps the
     boundary-row scorer of `constrained_walk_crowd` with n_samples as
     given.  `group`, a torch.distributed process group, splits the
-    full-constraint crowd over its ranks (each rank's own `device`)."""
+    full-constraint crowd over its ranks (each rank's own `device`);
+    `status_group` (gloo) carries the ranks' agreement before the
+    gathers (`parallel.group.agree`)."""
 
     def __init__(self, graph: MotionStateGraph, config: Optional[dict] = None,
                  n_steps: int = 12, n_samples: int = 64,
                  max_step_frames: int = 64, full_constraints: bool = True,
-                 lm_iters: int = 3, device=None, group=None):
+                 lm_iters: int = 3, device=None, group=None,
+                 status_group=None):
         self.graph = graph
         self.device = device_mod.resolve(device, "BatchedGenerator")
         self.group = group
+        self.status_group = status_group
         self.stacked = stack_graph(graph, device=self.device)
         self.config = config or default_config()
         self.n_steps = n_steps
@@ -132,6 +140,43 @@ class BatchedGenerator:
                        parsed_list: Optional[list] = None) -> List[np.ndarray]:
         """Synthesize the requests in one launch -> one [T_i, D] frame
         array per request.  Every request must be batchable."""
+        try:
+            paths, start = self._inputs(mg_inputs,
+                                        activate_coordinate_transform,
+                                        parsed_list)
+            # every rank draws the whole crowd from the seed and walks its
+            # own rows of the draws
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            draws = walk_mod.torch_sampler(gen, self.stacked,
+                                           len(mg_inputs), self.n_samples)
+        except Exception as e:  # the other ranks wait in the agreement
+            if self.status_group is None or not self.full_constraints:
+                raise
+            group_mod.agree(self.status_group, e)
+        if self.full_constraints:
+            skel = self.graph.skeleton
+            step_scs = cw.default_step_scs(skel, self.n_steps)
+            # the selection kernels rank on the locomotion family only: a
+            # batch path that adds user slots falls back to the general
+            # selection (the sets are empty today)
+            cfg = dataclasses.replace(
+                self.walk_config(),
+                pallas_selection=compiled.step_scs_locomotion_only(step_scs))
+            segs, n_frames, _, _ = parallel.constrained_crowd_sharded(
+                [self.device], skel, self.stacked, paths, start,
+                self.n_steps, draws, step_scs=step_scs, cfg=cfg,
+                group=self.group, status_group=self.status_group)
+        else:
+            segs, n_frames, _, _ = cw.constrained_walk(
+                self.stacked, paths, start, self.n_steps, draws,
+                max_step_frames=self.max_step_frames)
+        segs = segs.cpu().numpy()
+        n_frames = n_frames.cpu().numpy()
+        return [walk_mod.flatten_segments(segs[c], n_frames[c])
+                for c in range(len(mg_inputs))]
+
+    def _inputs(self, mg_inputs, activate_coordinate_transform, parsed_list):
+        """The requests' stacked root paths and start node ids."""
         paths, start_ids = [], []
         root_joint = self._root_joint()
         for i, mg_input in enumerate(mg_inputs):
@@ -150,29 +195,5 @@ class BatchedGenerator:
                 unconstrained_dims=traj.unconstrained_dims,
                 device=self.device))
             start_ids.append(self._start_id(parsed.actions[0].name))
-        stacked_paths = spline_path.stack_paths(paths)
-        start = torch.tensor(start_ids, device=self.device)
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        draws = walk_mod.torch_sampler(gen, self.stacked, len(mg_inputs),
-                                       self.n_samples)
-        if self.full_constraints:
-            skel = self.graph.skeleton
-            step_scs = cw.default_step_scs(skel, self.n_steps)
-            # the selection kernels rank on the locomotion family only: a
-            # batch path that adds user slots falls back to the general
-            # selection (the sets are empty today)
-            cfg = dataclasses.replace(
-                self.walk_config(),
-                pallas_selection=compiled.step_scs_locomotion_only(step_scs))
-            segs, n_frames, _, _ = parallel.constrained_crowd_sharded(
-                [self.device], skel, self.stacked, stacked_paths, start,
-                self.n_steps, draws, step_scs=step_scs, cfg=cfg,
-                group=self.group)
-        else:
-            segs, n_frames, _, _ = cw.constrained_walk(
-                self.stacked, stacked_paths, start, self.n_steps, draws,
-                max_step_frames=self.max_step_frames)
-        segs = segs.cpu().numpy()
-        n_frames = n_frames.cpu().numpy()
-        return [walk_mod.flatten_segments(segs[c], n_frames[c])
-                for c in range(len(mg_inputs))]
+        return (spline_path.stack_paths(paths),
+                torch.tensor(start_ids, device=self.device))

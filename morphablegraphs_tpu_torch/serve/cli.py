@@ -1,18 +1,26 @@
 """Command-line entry points (port of morphablegraphs_tpu.serve.cli).
 
-    python -m morphablegraphs_tpu_torch.serve.cli train MOTION_DIR NAME
+    python -m morphablegraphs_tpu_torch.serve.cli train MOTION_DIR NAME \
+        [--nproc N]
     python -m morphablegraphs_tpu_torch.serve.cli cluster-trees MODEL_DIR \\
         [--config configs/space_partitioning.json]
     python -m morphablegraphs_tpu_torch.serve.cli run GRAPH.zip INPUT_DIR \\
         OUTPUT_DIR [--config configs/standard_algorithm.config]
-    python -m morphablegraphs_tpu_torch.serve.cli serve GRAPH.zip [--port P]
+    python -m morphablegraphs_tpu_torch.serve.cli serve GRAPH.zip [--port P] \
+        [--nproc N]
     python -m morphablegraphs_tpu_torch.serve.cli set-config CONFIG [--url U]
 
 Replaces reference examples/run_construction.py (train),
 mg_command_line_interface.py (the offline pipeline),
 generate_cluster_trees.py and mg_rest_interface.py (serve: the REST
 service of serve/rest.py).  Every command runs on the CUDA device unless
-it is given --device cpu.
+it is given --device cpu.  `train` and `serve` run on one rank, this
+process, unless given --nproc N: then over N ranks (`parallel.launch`),
+one process per card, the DTW's pair grids and each batch's crowd split
+over them, as the JAX package's training and batch span every device.
+Extra ranks cost their start (seconds each) and a batch's split pays a
+gather: on four H100 cards neither paid back (ROADMAP, "Known
+differences").  `mg-torch` is the same command line.
 """
 
 from __future__ import annotations
@@ -24,7 +32,9 @@ import os
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
+from .. import parallel
 from ..construct.constructor import (MotionModelConstructor,
                                      define_sections_from_annotations,
                                      define_sections_from_keyframes)
@@ -56,11 +66,15 @@ def load_motion_data(motion_folder: str, max_count: int = 100):
 def train_model(motion_folder: str, name: str,
                 output_filename: Optional[str] = None, version: int = 3,
                 config: Optional[dict] = None, export_sample: bool = True,
-                device=None) -> str:
+                device=None) -> Optional[str]:
     """Train a motion primitive from a BVH directory on `device` (CUDA
     unless named), write its model JSON and, with export_sample, a BVH of
     one draw of the trained model next to it (reference
     run_construction.py:156-222 train_model, with its round-trip check).
+    In a default process group of several ranks (`cli train --nproc`)
+    every rank loads and aligns the clips and the DTW's pair grids split
+    over the ranks; rank 0 alone fits and writes the model, and the other
+    ranks return None.
 
     The DTW runs per section (reference :164-176) when the folder has a
     `keyframes.json` ({motion name: split frame}: two sections per clip;
@@ -85,6 +99,9 @@ def train_model(motion_folder: str, name: str,
     c = MotionModelConstructor(skeleton, config, device=dev)
     c.set_motions(motions)
     c.set_dtw_sections(sections)
+    if dist.is_available() and dist.is_initialized() and dist.get_rank():
+        c.align()
+        return None
     model = c.construct_model(name, version=version)
     output_filename = output_filename or f"{name}_mm.json"
     with open(output_filename, "w") as f:
@@ -153,6 +170,15 @@ def generate_cluster_trees(model_dir: str, n_samples: int = 10000,
     return out
 
 
+def _train_rank(ranks, motion_folder: str, name: str,
+                output: Optional[str], version: int):
+    """`cli train` on one rank; rank 0 prints the model's path."""
+    path = train_model(motion_folder, name, output, version,
+                       device=ranks.device)
+    if path is not None:
+        print(path)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="mg-torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -162,7 +188,14 @@ def main(argv=None):
                             help="torch device to run on (default cuda)")
         return parser
 
-    t = with_device(sub.add_parser(
+    def with_ranks(parser):
+        parser.add_argument(
+            "--nproc", type=int, default=1,
+            help="ranks, one process each, rank r on card r (default 1); "
+                 "more ranks than cards share them over gloo")
+        return with_device(parser)
+
+    t = with_ranks(sub.add_parser(
         "train", help="train a motion primitive from BVH clips"))
     t.add_argument("motion_folder")
     t.add_argument("name")
@@ -184,7 +217,7 @@ def main(argv=None):
                     help="space_partitioning.json (reference examples/config/"
                          "space_partitioning.json schema)")
 
-    s = with_device(sub.add_parser("serve", help="start the REST service"))
+    s = with_ranks(sub.add_parser("serve", help="start the REST service"))
     s.add_argument("graph_path")
     s.add_argument("--port", type=int, default=8889)
 
@@ -196,8 +229,9 @@ def main(argv=None):
 
     args = p.parse_args(argv)
     if args.cmd == "train":
-        print(train_model(args.motion_folder, args.name, args.output,
-                          args.version, device=args.device))
+        parallel.launch(_train_rank, (args.motion_folder, args.name,
+                                      args.output, args.version),
+                        nproc=args.nproc, device=args.device)
     elif args.cmd == "run":
         cfg = load_config(args.config) if args.config else None
         print(run_pipeline(args.graph_path, args.input_dir, args.output_dir,
@@ -218,7 +252,8 @@ def main(argv=None):
             print(f)
     elif args.cmd == "serve":
         from . import rest
-        rest.main(args.graph_path, args.port, device=args.device)
+        rest.main(args.graph_path, args.port, device=args.device,
+                  nproc=args.nproc)
     elif args.cmd == "set-config":
         import urllib.request
         with open(args.config_file, "rb") as f:

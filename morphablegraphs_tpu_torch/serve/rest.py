@@ -20,23 +20,36 @@ A kernel that cannot run (`ops.cuda_build.KernelError`, a CUDA error or
 the card out of memory) is not a fault of the request: it is answered 500
 and logged, never 400, and a batch that meets one is not re-run on the
 sequential path, which does not run the batch's selection kernel.
+
+Over several ranks (`main(..., nproc=)`, `cli serve --nproc N`; one
+rank by default) rank 0 binds the HTTP server and the other ranks build
+the same graph and context on their own cards and wait for rank 0's
+commands (`parallel.group`).  The batch endpoint sends each batch's
+requests to every rank, every rank walks its rows of the crowd, and the
+ranks exchange their statuses: a rank that failed, hung past the data
+timeout or is gone answers 500 and names the rank, and a group that lost
+a rank answers every later batch 500.  /set_configuration reaches every
+rank; the other routes run on rank 0 alone.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import signal
+import threading
+import time
 import traceback
 from http.server import BaseHTTPRequestHandler, HTTPServer
 from typing import Callable, Optional, Tuple
 
 import numpy as np
-import torch
 
 from ..constraints.input_reader import read_input
 from ..models.graph import MotionStateGraph, load_graph
 from ..models.skeleton import write_bvh
-from ..ops.cuda_build import KernelError
+from ..ops import kernels
+from ..parallel import group as group_mod
 from ..synthesis.motion_generator import MotionGenerator
 from ..utils import device as device_mod
 from ..utils.config import _merge, default_config
@@ -45,9 +58,11 @@ from ..utils.log import (LOG_MODE_ERROR, configure_from_service_config,
 from .export import (AnnotatedMotion, collision_vis_data_from_result,
                      events_from_result)
 
-# failures of the device, not of the request
-DEVICE_ERRORS = (KernelError, torch.cuda.OutOfMemoryError) + (
-    (torch.AcceleratorError,) if hasattr(torch, "AcceleratorError") else ())
+# failures of the device or of a rank, not of the request
+DEVICE_ERRORS = group_mod.DEVICE_ERRORS
+# faults of the request: answered 400, or a batch degraded to the
+# sequential path
+REQUEST_ERRORS = group_mod.REQUEST_ERRORS
 
 _TEXT = "text/html; charset=UTF-8"
 _JSON = "application/json; charset=UTF-8"
@@ -59,7 +74,9 @@ class MGContext:
     """Shared state: graph + generator + config (reference
     MGRestApplication), on `device`: the CUDA device unless the caller
     names another.  `sampler` is handed to the MotionGenerator (the
-    tests replay the JAX package's draws through it)."""
+    tests replay the JAX package's draws through it).  `ranks`, this
+    process's `parallel.RankGroup`, splits every batch over the group's
+    ranks (one rank, or none: this process alone)."""
 
     def __init__(self, graph: MotionStateGraph, config: Optional[dict] = None,
                  activate_joint_mapping: bool = False,
@@ -68,8 +85,11 @@ class MGContext:
                  retarget_scale: float = 1.0,
                  create_ca_vis_data: bool = False,
                  add_rotate_events: bool = False, device=None,
-                 sampler: Optional[Callable] = None):
+                 sampler: Optional[Callable] = None,
+                 ranks: Optional[group_mod.RankGroup] = None):
         self.graph = graph
+        self.ranks = ranks if ranks is not None and ranks.world > 1 \
+            else None
         self.config = config or default_config()
         self.device = device_mod.resolve(device, "MGContext")
         self.generator = MotionGenerator(graph, self.config,
@@ -90,12 +110,38 @@ class MGContext:
 
     def batched_generator(self):
         """The cached BatchedGenerator on the context's device (the graph
-        is stacked and moved to the device once, not per request)."""
+        is stacked and moved to the device once, not per request), over
+        the ranks' data group when there are several."""
         if self._batched_generator is None:
             from .batch import BatchedGenerator
+            r = self.ranks
             self._batched_generator = BatchedGenerator(
-                self.graph, self.config, device=self.device)
+                self.graph, self.config, device=self.device,
+                group=r and r.data, status_group=r and r.status)
         return self._batched_generator
+
+    def generate_batch(self, mg_inputs: list,
+                       parsed_list: Optional[list] = None) -> list:
+        """The batched generator's frames for the requests, on every rank:
+        rank 0 sends them to the others first."""
+        if self.ranks is None:
+            return self.batched_generator().generate_batch(
+                mg_inputs, self.activate_coordinate_transform,
+                parsed_list=parsed_list)
+        cmd = dict(op="batch", requests=mg_inputs, seed=0,
+                   coordinate_transform=self.activate_coordinate_transform)
+        self.ranks.send(cmd)
+        return _rank_batch(self, cmd, parsed_list)
+
+    def configure(self, update: dict):
+        """Merge an algorithm config update (on every rank, sent from rank
+        0); the cached BatchedGenerator holds the old config and is
+        rebuilt on demand."""
+        _merge(self.config, update)
+        self.generator.config = self.config
+        self._batched_generator = None
+        if self.ranks is not None and self.ranks.rank == 0:
+            self.ranks.send(dict(op="set_configuration", update=update))
 
     def run(self, mg_input: dict, output_mode: str = "bvh") -> dict:
         result = self.generator.generate_motion(
@@ -163,7 +209,7 @@ def generate_motion(ctx: MGContext, body: bytes) -> Response:
         return _text(json.dumps(ctx.run(mg_input, output_mode)))
     except DEVICE_ERRORS:
         raise
-    except (KeyError, ValueError, RuntimeError) as e:
+    except REQUEST_ERRORS as e:
         # RuntimeError covers SynthesisError/PathSearchError from the
         # generator (utils/exceptions.py)
         return _json(400, {"error": str(e)})
@@ -187,16 +233,15 @@ def generate_motion_batch(ctx: MGContext, body: bytes) -> Response:
     results = [None] * len(requests_list)
     if batchable:
         try:
-            frames_list = bg.generate_batch(
+            frames_list = ctx.generate_batch(
                 [requests_list[i] for i in batchable],
-                ctx.activate_coordinate_transform,
                 parsed_list=[parsed[i] for i in batchable])
             for i, frames in zip(batchable, frames_list):
                 results[i] = {"bvh": write_bvh(ctx.graph.skeleton, frames),
                               "batched": True}
         except DEVICE_ERRORS:
             raise
-        except (KeyError, ValueError, RuntimeError):
+        except REQUEST_ERRORS:
             # a request fault degrades the batch to the sequential path
             fallback = sorted(set(fallback) | set(batchable))
     for i in fallback:
@@ -204,7 +249,7 @@ def generate_motion_batch(ctx: MGContext, body: bytes) -> Response:
             results[i] = {**ctx.run(requests_list[i]), "batched": False}
         except DEVICE_ERRORS:
             raise
-        except (KeyError, ValueError, RuntimeError) as e:
+        except REQUEST_ERRORS as e:
             results[i] = {"error": str(e)}
     return _text(json.dumps({"results": results}))
 
@@ -226,10 +271,7 @@ def set_configuration(ctx: MGContext, body: bytes) -> Response:
         update = json.loads(body)
     except json.JSONDecodeError:
         return _json(400, {"error": "invalid JSON"})
-    _merge(ctx.config, update)
-    ctx.generator.config = ctx.config
-    # the cached BatchedGenerator holds the old config: rebuilt on demand
-    ctx._batched_generator = None
+    ctx.configure(update)
     return _json(200, {"success": True})
 
 
@@ -358,11 +400,78 @@ def load_service_config(path: str) -> dict:
         return json.load(f)
 
 
+def _rank_batch(ctx: MGContext, cmd: dict,
+                parsed_list: Optional[list] = None) -> list:
+    """One batch command on this rank: its rows of the crowd, then every
+    rank's status, seconds and launches (`RankGroup.report`, which raises
+    on every rank when one failed); rank 0 prints them."""
+    before = kernels.launch_counts()
+    t0 = time.perf_counter()
+    frames, error = None, None
+    try:
+        frames = ctx.batched_generator().generate_batch(
+            cmd["requests"], cmd["coordinate_transform"], seed=cmd["seed"],
+            parsed_list=parsed_list)
+    except Exception as e:  # every rank reports, then raises
+        error = e
+    after = kernels.launch_counts()
+    statuses = ctx.ranks.report(
+        error, seconds=round(time.perf_counter() - t0, 4),
+        launches={k: n - before[k] for k, n in after.items()
+                  if n != before[k]})
+    if ctx.ranks.rank == 0:
+        line = (f"batch of {len(cmd['requests'])} over {ctx.ranks.world} "
+                f"ranks: seconds {[s['seconds'] for s in statuses]}, "
+                f"launches {json.dumps([s['launches'] for s in statuses])}")
+        write_message_to_log(line)
+        print(line, flush=True)
+    return frames
+
+
+def _work(ctx: MGContext):
+    """A rank other than 0: rank 0's commands until it says stop (or is
+    gone).  A failed batch is rank 0's to answer."""
+    while True:
+        cmd = ctx.ranks.receive()
+        if cmd["op"] == "stop":
+            return
+        if cmd["op"] == "set_configuration":
+            ctx.configure(cmd["update"])
+        elif cmd["op"] == "batch":
+            try:
+                _rank_batch(ctx, cmd)
+            except group_mod.RankError:
+                if ctx.ranks.broken is not None:
+                    raise
+            except Exception:  # reported to rank 0, which answers it
+                write_message_to_log(f"rank {ctx.ranks.rank}: batch failed:"
+                                     f"\n{traceback.format_exc()}",
+                                     LOG_MODE_ERROR)
+
+
+def _interrupt(signum, frame):
+    raise KeyboardInterrupt
+
+
 def main(graph_path: Optional[str] = None, port: int = 8889,
          config: Optional[dict] = None, service_config: Optional[str] = None,
-         device=None):
+         device=None, nproc: int = 1,
+         data_timeout: float = group_mod.DATA_TIMEOUT_S):
     """reference mg_rest_interface.py:381-423 main: load the graph zip on
-    `device` (the CUDA device unless named) and serve until interrupted."""
+    `device` (the CUDA device unless named) and serve until interrupted.
+    `nproc` ranks (`parallel.launch`): rank 0 serves HTTP, the others
+    walk their rows of each batch; `data_timeout` (seconds) bounds a
+    gather or a status exchange inside a batch."""
+    group_mod.launch(_serve_rank, (graph_path, port, config, service_config),
+                     nproc=nproc, device=device, data_timeout=data_timeout,
+                     fail_fast=False)
+
+
+def _serve_rank(ranks: group_mod.RankGroup, graph_path: Optional[str],
+                port: int, config: Optional[dict],
+                service_config: Optional[str]):
+    """main on one rank."""
+    group_mod.build_kernels(ranks)
     joint_map = False
     coord_transform = False
     target_skeleton = None
@@ -389,20 +498,38 @@ def main(graph_path: Optional[str] = None, port: int = 8889,
                                        f"{preset}_algorithm.config")
             if os.path.exists(preset_path):
                 config = load_config(preset_path)
-    dev = device_mod.resolve(device, "the REST service")
+    dev = device_mod.resolve(ranks.device, "the REST service")
     graph = load_graph(graph_path, device=dev)
     ctx = MGContext(graph, config, activate_joint_mapping=joint_map,
                     activate_coordinate_transform=coord_transform,
                     target_skeleton=target_skeleton,
-                    retarget_scale=retarget_scale, device=dev)
+                    retarget_scale=retarget_scale, device=dev, ranks=ranks)
+    if ranks.rank != 0:
+        _work(ctx)
+        return
     server = make_server(make_app(ctx), "", port)
     bound = server.server_address[1]
     write_message_to_log(f"serving morphablegraphs on :{bound}")
     print(f"serving morphablegraphs on :{bound}", flush=True)
+    if ctx.ranks is None:
+        try:
+            server.serve_forever()
+        finally:
+            server.server_close()
+        return
+    if threading.current_thread() is threading.main_thread():
+        # a stop sent to rank 0 stops every rank
+        signal.signal(signal.SIGTERM, _interrupt)
     try:
         server.serve_forever()
+    except KeyboardInterrupt:
+        pass
     finally:
         server.server_close()
+        try:
+            ctx.ranks.send(dict(op="stop"))
+        except group_mod.RankError as e:
+            write_message_to_log(f"stopping the ranks: {e}", LOG_MODE_ERROR)
 
 
 if __name__ == "__main__":

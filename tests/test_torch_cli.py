@@ -313,13 +313,17 @@ def test_load_config_matches_jax(path):
 def test_serve_is_refused_and_set_config_posts(tmp_path, monkeypatch,
                                                capsys):
     """`serve` (refused until the REST service was ported; the name is
-    kept) hands its graph, port and device to rest.main;
-    tests/test_torch_rest.py serves through it."""
+    kept) hands its graph, port, device and ranks (one unless given) to
+    rest.main; tests/test_torch_rest.py and test_torch_launch.py serve
+    through it."""
     from morphablegraphs_tpu_torch.serve import rest
     served = []
     monkeypatch.setattr(rest, "main", lambda *a, **kw: served.append((a, kw)))
     clit.main(["serve", "graph.zip", "--port", "0", "--device", "cpu"])
-    assert served == [(("graph.zip", 0), {"device": "cpu"})]
+    clit.main(["serve", "graph.zip", "--port", "0", "--device", "cpu",
+               "--nproc", "2"])
+    assert served == [(("graph.zip", 0), {"device": "cpu", "nproc": 1}),
+                      (("graph.zip", 0), {"device": "cpu", "nproc": 2})]
     import urllib.request
     sent = {}
 

@@ -66,3 +66,28 @@ def test_kernel_sources_present_and_unbuilt_at_import():
         text = src.read_text()
         assert "pallas_kernels.py" in text  # names the TPU kernel it replaces
         assert "cudaGetLastError" in text
+
+
+def test_group_module_starts_nothing_at_import():
+    """parallel/group.py (the counterpart of the JAX package's make_mesh,
+    shard_crowd_inputs and replicate_model) imports without JAX and
+    starts no thread, no process and no process group until launch is
+    called; the package exports it."""
+    code = (
+        "import sys, threading\n"
+        f"for m in {BLOCKED!r}:\n"
+        "    sys.modules[m] = None\n"
+        "import multiprocessing\n"
+        "from morphablegraphs_tpu_torch import parallel\n"
+        "from morphablegraphs_tpu_torch.parallel import group\n"
+        "import torch.distributed as dist\n"
+        "assert parallel.launch is group.launch\n"
+        "assert parallel.RankGroup is group.RankGroup\n"
+        "assert threading.active_count() == 1, threading.enumerate()\n"
+        "assert not multiprocessing.active_children()\n"
+        "assert not dist.is_initialized()\n"
+        "print('OK')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "OK"

@@ -335,9 +335,9 @@ def test_serving_goes_through_parallel(monkeypatch):
     real = batch_t.parallel.constrained_crowd_sharded
 
     def spy(devices, skel, g, paths, start_ids, n_steps, draws,
-            step_scs=None, cfg=None, group=None):
+            step_scs=None, cfg=None, group=None, status_group=None):
         seen.update(devices=list(devices), cfg=cfg, n_steps=n_steps,
-                    scs=step_scs, group=group)
+                    scs=step_scs, group=group, status_group=status_group)
         out = real(devices, skel, g, paths, start_ids, n_steps, draws,
                    step_scs=step_scs, cfg=cfg)
         seen["out"] = out
@@ -346,7 +346,8 @@ def test_serving_goes_through_parallel(monkeypatch):
     monkeypatch.setattr(batch_t.parallel, "constrained_crowd_sharded", spy)
     outs = bg.generate_batch(reqs, seed=3)
     assert seen["devices"] == [torch.device("cpu")] and seen["n_steps"] == 2
-    assert seen["group"] is None  # a generator without a process group
+    # a generator without a process group
+    assert seen["group"] is None and seen["status_group"] is None
     assert seen["cfg"] == bg.walk_config() and seen["cfg"].pallas_selection
     assert seen["scs"] is not None
     segs, n_frames = (a.numpy() for a in seen["out"][:2])
