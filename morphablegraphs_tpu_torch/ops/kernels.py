@@ -21,17 +21,21 @@
 
 A wrapper given CPU tensors runs the twin; given CUDA tensors it launches
 the kernel, or raises `KernelError` (a failed build, a CUDA error, a
-device with no kernel).  Each wrapper adds one to its kernel's entry of
-`launch_counts()` where it launches it, and nowhere else.
+device with no kernel).  Each wrapper counts its kernel's launches where
+it launches it, and nowhere else, and each `KernelError` it raises, in the
+tracer (`utils.profiling`: `kernel.launches.<kernel>`,
+`kernel.errors.<wrapper>`); `launch_counts()` reads the launches.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import align, bspline, cuda_build, gmm as gmm_ops
 from .cuda_build import KernelError
 
@@ -43,10 +47,30 @@ TRAJ_SAMPLES = 16
 DAMP_FLOOR_REL = 1e-2  # LM damping floor, relative to max(diag JtJ)
 _PI = math.pi
 
-_LAUNCHES = {"score_locomotion_candidates": 0,
-             "score_locomotion_candidates_ee": 0,
-             "chol_solve": 0, "lm_delta": 0, "gmm_scores": 0,
-             "crowd_back_project": 0, "emit_frames": 0}
+# the kernels whose launches are counted (B1, B3, B2, B4, B5, B6, emit)
+KERNELS = ("score_locomotion_candidates", "score_locomotion_candidates_ee",
+           "chol_solve", "lm_delta", "gmm_scores", "crowd_back_project",
+           "emit_frames")
+LAUNCHES = "kernel.launches."
+ERRORS = "kernel.errors."
+
+
+def _launched(kernel: str):
+    profiling.count(LAUNCHES + kernel)
+
+
+def _counts_errors(wrapper):
+    """The wrapper, counting each KernelError it raises."""
+    name = ERRORS + wrapper.__name__
+
+    @functools.wraps(wrapper)
+    def counted(*args, **kwargs):
+        try:
+            return wrapper(*args, **kwargs)
+        except KernelError:
+            profiling.count(name)
+            raise
+    return counted
 
 
 def _round_up(x: int, m: int) -> int:
@@ -409,17 +433,18 @@ def _launch_selection(mop, alphas, table, cfg, chain, lanes: int):
                 mop.data_ptr(), alphas.data_ptr(), table.data_ptr(),
                 cfg.data_ptr(), out.data_ptr(), c, n, k, table.shape[1],
                 lanes, stream), "score_locomotion_candidates launch")
-            _LAUNCHES["score_locomotion_candidates"] += 1
+            _launched("score_locomotion_candidates")
         else:
             cuda_build.check(lib.mg_score_loco_ee(
                 mop.data_ptr(), alphas.data_ptr(), table.data_ptr(),
                 cfg.data_ptr(), chain.data_ptr(), out.data_ptr(), c, n, k,
                 table.shape[1], chain.shape[0], lanes, stream),
                 "score_locomotion_candidates (ee) launch")
-            _LAUNCHES["score_locomotion_candidates_ee"] += 1
+            _launched("score_locomotion_candidates_ee")
     return out
 
 
+@_counts_errors
 def score_locomotion_candidates(mop: torch.Tensor, alphas: torch.Tensor,
                                 table: torch.Tensor, cfg: torch.Tensor,
                                 chain=None) -> torch.Tensor:
@@ -488,6 +513,7 @@ def chol_solve_unrolled(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return x
 
 
+@_counts_errors
 def chol_solve(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Crowd SPD solve: a [C, k, k], g [C, k] -> x [C, k].  Zero systems
     solve to 0."""
@@ -510,7 +536,7 @@ def chol_solve(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         cuda_build.check(lib.mg_chol_solve(a.data_ptr(), g.data_ptr(),
                                            x.data_ptr(), c, k, stream),
                          "chol_solve launch")
-    _LAUNCHES["chol_solve"] += 1
+    _launched("chol_solve")
     return x
 
 
@@ -543,6 +569,7 @@ def lm_delta_ref(j: torch.Tensor, r: torch.Tensor, lam: torch.Tensor,
     return lm_delta_block(j, r, lam, radius, chol_solve_unrolled)
 
 
+@_counts_errors
 def lm_delta(j: torch.Tensor, r: torch.Tensor, lam: torch.Tensor,
              radius: torch.Tensor) -> torch.Tensor:
     """Clipped LM step of the whole crowd in one kernel (B4): j [C, R, k],
@@ -568,7 +595,7 @@ def lm_delta(j: torch.Tensor, r: torch.Tensor, lam: torch.Tensor,
             j.data_ptr(), r.data_ptr(), lam.data_ptr(), radius.data_ptr(),
             out.data_ptr(), c, n_res, k, DAMP_FLOOR_REL, stream),
             "lm_delta launch")
-    _LAUNCHES["lm_delta"] += 1
+    _launched("lm_delta")
     return out
 
 
@@ -638,10 +665,11 @@ def _launch_gmm(x, weights, means, prec_chol, mix_id, with_grad: bool):
             prec_chol.data_ptr(), mix_id.data_ptr(), logp.data_ptr(),
             None if grad is None else grad.data_ptr(), c, m, k, d, stream),
             "gmm_scores launch")
-    _LAUNCHES["gmm_scores"] += 1
+    _launched("gmm_scores")
     return logp, grad
 
 
+@_counts_errors
 def gmm_scores(x: torch.Tensor, weights: torch.Tensor, means: torch.Tensor,
                prec_chol: torch.Tensor, mix_id=None) -> torch.Tensor:
     """Mixture log-likelihood of each row (kernel B5): x [C, D] under one
@@ -655,6 +683,7 @@ def gmm_scores(x: torch.Tensor, weights: torch.Tensor, means: torch.Tensor,
     return _launch_gmm(x, weights, means, prec_chol, mix_id, False)[0]
 
 
+@_counts_errors
 def gmm_nll_and_grad(x: torch.Tensor, weights: torch.Tensor,
                      means: torch.Tensor, prec_chol: torch.Tensor,
                      mix_id: torch.Tensor):
@@ -755,6 +784,7 @@ def crowd_back_project_ref(alphas, eigen, mean, basis, mix_id=None):
                                               basis.shape[-1], -1))
 
 
+@_counts_errors
 def crowd_back_project(alphas: torch.Tensor, eigen: torch.Tensor,
                        mean: torch.Tensor, basis: torch.Tensor,
                        mix_id=None) -> torch.Tensor:
@@ -789,7 +819,7 @@ def crowd_back_project(alphas: torch.Tensor, eigen: torch.Tensor,
             alphas.data_ptr(), basis.data_ptr(), out.data_ptr(), c, m, k,
             n_basis, n_dim, t, int(basis.shape[0] == 1), stream),
             "crowd_back_project launch")
-    _LAUNCHES["crowd_back_project"] += 1
+    _launched("crowd_back_project")
     return out
 
 
@@ -838,6 +868,7 @@ def emit_frames_ref(alphas, eigen, mean, knots, mix_id, t_fn, n_frames,
     return frames, frames[rows, last_idx]
 
 
+@_counts_errors
 def emit_frames(alphas: torch.Tensor, eigen: torch.Tensor, mean: torch.Tensor,
                 knots: torch.Tensor, mix_id: torch.Tensor,
                 t_fn: torch.Tensor, n_frames: torch.Tensor,
@@ -883,15 +914,15 @@ def emit_frames(alphas: torch.Tensor, eigen: torch.Tensor, mean: torch.Tensor,
             prev_last.data_ptr() if has_prev else None, out.data_ptr(),
             new_last.data_ptr(), c, eigen.shape[0], k, n_basis, n_dim, t,
             int(bool(has_prev)), int(window), stream), "emit_frames launch")
-    _LAUNCHES["emit_frames"] += 1
+    _launched("emit_frames")
     return out, new_last
 
 
 def reset_launch_counts():
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
+    profiling.reset(LAUNCHES)
 
 
 def launch_counts() -> dict:
     """Kernel launches since the last reset, by kernel."""
-    return dict(_LAUNCHES)
+    counts = profiling.counters()
+    return {k: counts.get(LAUNCHES + k, 0) for k in KERNELS}

@@ -5,9 +5,10 @@
     python -m morphablegraphs_tpu_torch.serve.cli cluster-trees MODEL_DIR \\
         [--config configs/space_partitioning.json]
     python -m morphablegraphs_tpu_torch.serve.cli run GRAPH.zip INPUT_DIR \\
-        OUTPUT_DIR [--config configs/standard_algorithm.config]
+        OUTPUT_DIR [--config configs/standard_algorithm.config] \\
+        [--trace-out TRACE.json]
     python -m morphablegraphs_tpu_torch.serve.cli serve GRAPH.zip [--port P] \
-        [--nproc N]
+        [--nproc N] [--trace-out TRACE.json]
     python -m morphablegraphs_tpu_torch.serve.cli set-config CONFIG [--url U]
 
 Replaces reference examples/run_construction.py (train),
@@ -20,7 +21,10 @@ one process per card, the DTW's pair grids and each batch's crowd split
 over them, as the JAX package's training and batch span every device.
 Extra ranks cost their start (seconds each) and a batch's split pays a
 gather: on four H100 cards neither paid back (ROADMAP, "Known
-differences").  `mg-torch` is the same command line.
+differences").  `run` and `serve` with --trace-out arm the tracer's
+counters (`utils.profiling`) and write its snapshot there as JSON when the
+command ends (`serve`: this process's, rank 0's).  `mg-torch` is the same
+command line.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from ..models.graph import load_graph
 from ..models.skeleton import bvh_to_quat_frames, load_bvh, write_bvh
 from ..synthesis.motion_generator import MotionGenerator
 from ..utils import device as device_mod
+from ..utils import profiling
 from ..utils.config import default_config, load_config
 
 
@@ -195,6 +200,13 @@ def main(argv=None):
                  "more ranks than cards share them over gloo")
         return with_device(parser)
 
+    def with_trace_out(parser):
+        parser.add_argument(
+            "--trace-out", metavar="PATH",
+            help="arm the tracer's counters and write its spans and "
+                 "counters to PATH as JSON when the command ends")
+        return parser
+
     t = with_ranks(sub.add_parser(
         "train", help="train a motion primitive from BVH clips"))
     t.add_argument("motion_folder")
@@ -202,8 +214,8 @@ def main(argv=None):
     t.add_argument("--output")
     t.add_argument("--version", type=int, default=3)
 
-    r = with_device(sub.add_parser(
-        "run", help="run synthesis on the newest input JSON"))
+    r = with_trace_out(with_device(sub.add_parser(
+        "run", help="run synthesis on the newest input JSON")))
     r.add_argument("graph_path")
     r.add_argument("input_dir")
     r.add_argument("output_dir")
@@ -217,7 +229,8 @@ def main(argv=None):
                     help="space_partitioning.json (reference examples/config/"
                          "space_partitioning.json schema)")
 
-    s = with_ranks(sub.add_parser("serve", help="start the REST service"))
+    s = with_trace_out(with_ranks(sub.add_parser(
+        "serve", help="start the REST service")))
     s.add_argument("graph_path")
     s.add_argument("--port", type=int, default=8889)
 
@@ -228,6 +241,17 @@ def main(argv=None):
     sc.add_argument("--url", default="http://localhost:8889")
 
     args = p.parse_args(argv)
+    trace_out = getattr(args, "trace_out", None)
+    if trace_out:
+        profiling.enable()
+    try:
+        _command(args)
+    finally:
+        if trace_out:
+            profiling.write(trace_out)
+
+
+def _command(args):
     if args.cmd == "train":
         parallel.launch(_train_rank, (args.motion_folder, args.name,
                                       args.output, args.version),

@@ -52,6 +52,7 @@ from ..ops import kernels
 from ..parallel import group as group_mod
 from ..synthesis.motion_generator import MotionGenerator
 from ..utils import device as device_mod
+from ..utils import profiling
 from ..utils.config import _merge, default_config
 from ..utils.log import (LOG_MODE_ERROR, configure_from_service_config,
                          write_message_to_log)
@@ -351,9 +352,14 @@ def make_app(ctx: MGContext) -> Callable[[str, str, bytes], Response]:
     (status, content type, body bytes).  An unknown path answers 404, a
     method the route does not take 405; an exception a handler does not
     answer itself (a kernel that cannot run among them) answers 500 with
-    its message and is logged with its traceback."""
+    its message and is logged with its traceback.
 
-    def app(method: str, path: str, body: bytes) -> Response:
+    Each request is a `serve.request` root of the tracer
+    (`utils.profiling`; a span, never a range of a profiler trace), whose
+    id is the request's: every span under it carries the id, a failure's
+    log line names it, and an answer 500 counts `serve.errors`."""
+
+    def dispatch(method: str, path: str, body: bytes) -> Response:
         route = ROUTES.get(path.split("?", 1)[0])
         if route is None:
             return _json(404, {"error": f"no route {path}"})
@@ -363,9 +369,19 @@ def make_app(ctx: MGContext) -> Callable[[str, str, bytes], Response]:
         try:
             return handler(ctx, body)
         except Exception as e:  # the service keeps serving
-            write_message_to_log(f"{method} {path} failed:\n"
-                                 f"{traceback.format_exc()}", LOG_MODE_ERROR)
+            write_message_to_log(
+                f"{method} {path} failed (request "
+                f"{profiling.current_root()}):\n{traceback.format_exc()}",
+                LOG_MODE_ERROR)
             return _json(500, {"error": f"{type(e).__name__}: {e}"})
+
+    def app(method: str, path: str, body: bytes) -> Response:
+        with profiling.span("serve.request", ranged=False, method=method,
+                            path=path):
+            response = dispatch(method, path, body)
+            if response[0] == 500:
+                profiling.count("serve.errors")
+            return response
     return app
 
 

@@ -40,13 +40,13 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..constraints import compiled
 from ..models.graph import (NODE_TYPE_END, NODE_TYPE_IDS, NODE_TYPE_STANDARD,
                             StackedGraph, TRANSITION_TYPE_IDS)
 from ..models.skeleton import Skeleton
 from ..ops import align, kernels, lm, quat, spline_path
+from ..utils import profiling
 from . import walk as walk_mod
 
 
@@ -475,9 +475,9 @@ def full_walk_step(skeleton: Skeleton, g: StackedGraph,
     n_can_f = g.n_canonical[node].float()
     root_off = torch.as_tensor(skeleton.offsets[0], device=dev)
 
-    # each stage runs under a profiler range (walk.*) that a
-    # torch.profiler trace reads; outside a trace a range costs ~1 us
-    with record_function("walk.goal"):
+    # each stage is a span (walk.*) of the walk's root, and a range of a
+    # torch.profiler trace while one records
+    with profiling.span("walk.goal"):
         step_len = g.avg_step_length[node] * cfg.step_length_factor
         goal_arc = _goal_arc(g, state, path.full_arc_length,
                              cfg.step_length_factor, cfg.end_threshold)
@@ -498,20 +498,20 @@ def full_walk_step(skeleton: Skeleton, g: StackedGraph,
             pos_weight=cfg.pos_weight, dir_weight=cfg.dir_weight),
             use_half=cfg.use_half)
 
-    with record_function("walk.sample"):
+    with profiling.span("walk.sample"):
         samples = walk_mod.sample_node_latents(g, node, draws.comp_gumbel,
                                                draws.normal)
     if cfg.pallas_selection:
         # best of n_samples by kernel B1 (B3), exact re-score of the winner
-        with record_function("walk.select"):
+        with profiling.span("walk.select"):
             s = _select(g, state, sc, samples, path, path_table, goal_arc,
                         n_can_f, root_off, cfg, ee_chain)
-        with record_function("walk.rescore"):
+        with profiling.span("walk.rescore"):
             err = exact_error(skeleton, g, node, sc, s, root_only,
                               **_families(cfg))
     else:
         # the general path: the exact evaluator ranks, its error is kept
-        with record_function("walk.select"):
+        with profiling.span("walk.select"):
             errors = _rank_exact(skeleton, g, node, sc, samples, root_only,
                                  cfg)
             best = torch.argmin(errors, dim=1)
@@ -521,7 +521,7 @@ def full_walk_step(skeleton: Skeleton, g: StackedGraph,
 
     # ---- gated LM refinement
     if cfg.lm_iters > 0:
-        with record_function("walk.lm"):
+        with profiling.span("walk.lm"):
             s_ref, err_ref = _refine(skeleton, g, node, sc, s, err, cfg,
                                      root_only)
             gate = err >= cfg.lm_threshold
@@ -558,7 +558,7 @@ def _emit_step(g: StackedGraph, path: spline_path.PathSpline,
     the next node -> (new WalkState, StepOutput)."""
     node = state.node_id
     full_arc = path.full_arc_length
-    with record_function("walk.back_project"):
+    with profiling.span("walk.back_project"):
         t_fn, n_frames = walk_mod.warped_time(g, node, s[:, g.k_s_max:],
                                               max_step_frames)
         aligned, new_last = kernels.emit_frames(
@@ -566,7 +566,7 @@ def _emit_step(g: StackedGraph, path: spline_path.PathSpline,
             n_frames, state.prev_last if has_prev else None, has_prev,
             window)
 
-    with record_function("walk.advance"):
+    with profiling.span("walk.advance"):
         _, new_arc, _ = spline_path.closest_point(path, new_last[:, :3],
                                                   state.travelled)
         want_end = new_arc >= full_arc - end_threshold
@@ -593,6 +593,7 @@ def initial_state(g: StackedGraph, start_ids: torch.Tensor) -> WalkState:
                      done=torch.zeros(c, dtype=torch.bool, device=dev))
 
 
+@profiling.span("crowd", ranged=False)
 def constrained_walk_full_crowd(skeleton: Skeleton, g: StackedGraph,
                                 paths: spline_path.PathSpline,
                                 start_ids: torch.Tensor, n_steps: int,
@@ -690,6 +691,7 @@ def _score_candidates(g: StackedGraph, node_id: torch.Tensor,
     return pos_err + dir_weight * torch.rad2deg(torch.arccos(cos_a))
 
 
+@profiling.span("crowd", ranged=False)
 def constrained_walk(g: StackedGraph, paths: spline_path.PathSpline,
                      start_ids: torch.Tensor, n_steps: int,
                      draws: Callable[[int], walk_mod.StepDraws],
@@ -714,14 +716,14 @@ def constrained_walk(g: StackedGraph, paths: spline_path.PathSpline,
     outs = []
     for t in range(n_steps):
         d = draws(t)
-        with record_function("walk.goal"):
+        with profiling.span("walk.goal"):
             goal_pos, goal_dir = spline_path.point_and_dir_at_arc_length(
                 paths, _goal_arc(g, state, paths.full_arc_length,
                                  step_length_factor, end_threshold))
-        with record_function("walk.sample"):
+        with profiling.span("walk.sample"):
             samples = walk_mod.sample_node_latents(g, state.node_id,
                                                    d.comp_gumbel, d.normal)
-        with record_function("walk.select"):
+        with profiling.span("walk.select"):
             errors = _score_candidates(g, state.node_id, samples,
                                        state.prev_last, goal_pos, goal_dir,
                                        t > 0)
@@ -733,6 +735,7 @@ def constrained_walk(g: StackedGraph, paths: spline_path.PathSpline,
     return _stack_outputs(outs)
 
 
+@profiling.span("crowd", ranged=False)
 def constrained_walk_crowd(g: StackedGraph, paths: spline_path.PathSpline,
                            start_id, n_chars: int, n_steps: int,
                            draws: Callable[[int], walk_mod.StepDraws], **kw):

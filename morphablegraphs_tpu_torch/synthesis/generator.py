@@ -24,12 +24,12 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..constraints import compiled
 from ..models.primitive import MotionPrimitive
 from ..models.skeleton import Skeleton
 from ..ops import align, kernels, lm as lm_ops, spline_path, timewarp
+from ..utils import profiling
 
 
 def device_constraints(sc: compiled.StepConstraints,
@@ -206,7 +206,7 @@ def generate_constrained_sample(skeleton: Skeleton, prim: MotionPrimitive,
     lm_kw = dict(threshold=p["threshold"], n_iters=p["n_iters"],
                  error_scale=p["error_scale"],
                  quality_scale=p["quality_scale"], **fam)
-    with record_function("request.select"):
+    with profiling.span("request.select"):
         errors = score_pool(skeleton, prim, sc, pool, **fam)
         if p["do_refine"] and p["n_starts"] > 1:
             k = min(p["n_starts"], pool.shape[0])
@@ -217,7 +217,7 @@ def generate_constrained_sample(skeleton: Skeleton, prim: MotionPrimitive,
             starts, errs = pool[i][None], errors[i][None]
     if not p["do_refine"]:
         return starts[0], errs[0]
-    with record_function("request.lm"):
+    with profiling.span("request.lm"):
         return _refine_starts(skeleton, prim, sc, starts, errs, **lm_kw)
 
 
@@ -248,7 +248,7 @@ def finalize_step(prim: MotionPrimitive, s: torch.Tensor,
     smoothing are one launch of `kernels.emit_frames`.  Returns (frames
     [max_frames, D], n_frames int32 tensor, travelled [1] tensor)."""
     dev = s.device
-    with record_function("request.emit"):
+    with profiling.span("request.emit"):
         t_fn, n_frames = timewarp.linear_time_function(
             prim.n_canonical_frames, max_frames, device=dev)
         frames, last = kernels.emit_frames(

@@ -25,13 +25,13 @@ from typing import List
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..constraints import compiled
 from ..models.primitive import MotionPrimitive, back_project_spatial
 from ..models.skeleton import Skeleton
 from ..ops import align, kernels, timewarp
 from ..utils import device as device_mod
+from ..utils import profiling
 from . import generator
 
 
@@ -185,7 +185,7 @@ def optimize_spatial_over_steps(skeleton: Skeleton,
         return _chain_residuals(skeleton, prims, scs, alphas, gammas,
                                 quality_scale, nll_fn)
 
-    with record_function("request.global_opt"):
+    with profiling.span("request.global_opt"):
         x, err = _lm(residuals, x0, n_iters, init_lambda)
         x = x.cpu().numpy()
     out = []
@@ -243,7 +243,7 @@ def optimize_time_over_steps(prims: List[MotionPrimitive],
         return torch.cat(res + [torch.sqrt(
             torch.clamp(nll, min=0.0) * quality_scale)])
 
-    with record_function("request.time_opt"):
+    with profiling.span("request.time_opt"):
         g, _ = _lm(residuals, g0, n_iters, 1e-3)
         g = g.cpu().numpy()
     out = []

@@ -16,12 +16,12 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..construct.preprocessing import smooth_bitvector
 from ..models.skeleton import Skeleton, fk_positions
 from ..ops import ik as ik_ops
 from ..utils import device as device_mod
+from ..utils import profiling
 from ..utils.config import DEFAULT_ALGORITHM_CONFIG as _DAC
 
 LEFT_FOOT = "LeftFoot"
@@ -420,7 +420,7 @@ def ground_motion(skeleton: Skeleton, frames: np.ndarray, steps,
     dev = device_mod.resolve(device, "ground_motion")
     if not _foot_nodes(skeleton, "both"):
         return frames
-    with record_function("request.ground"):
+    with profiling.span("request.ground"):
         frames = move_to_ground(skeleton, frames, scene, device=dev)
         s = settings or {}
         if s.get("generate_foot_plant_constraints", False):

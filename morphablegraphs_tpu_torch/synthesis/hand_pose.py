@@ -13,10 +13,10 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..models.skeleton import Skeleton
 from ..ops import quat
+from ..utils import profiling
 
 RIGHT_HAND_JOINTS_PREFIX = "Right"
 LEFT_HAND_JOINTS_PREFIX = "Left"
@@ -107,7 +107,7 @@ class HandPoseGenerator:
         event, parameters: {joint}}].  carry_status starts from the
         statuses the previous call ended with, else both hands start
         "standard"."""
-        with record_function("request.hand_pose"):
+        with profiling.span("request.hand_pose"):
             frames = np.asarray(frames, np.float32).copy()
             switch_frames = []
             status = (dict(self.status) if carry_status

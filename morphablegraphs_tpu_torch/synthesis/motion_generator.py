@@ -42,7 +42,6 @@ from typing import Callable, List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..constraints import compiled
 from ..constraints.input_reader import read_input
@@ -52,6 +51,7 @@ from ..models.graph import (MotionStateGraph, NODE_TYPE_CYCLE_END,
                             NODE_TYPE_STANDARD)
 from ..ops import align, gmm as gmm_ops, spline_path, timewarp
 from ..utils import device as device_mod
+from ..utils import profiling
 from ..utils.config import default_config
 from . import action_builder, generator
 
@@ -159,6 +159,7 @@ class MotionGenerator:
                                           device=self.device))
 
     # ------------------------------------------------------------------
+    @profiling.span("generate", ranged=False)
     def generate_motion(self, mg_input: dict, complete_motion_vector: bool = True,
                         activate_joint_mapping: bool = False,
                         activate_coordinate_transform: bool = False,
@@ -191,7 +192,7 @@ class MotionGenerator:
             action_step_spans.append((acs.action_name, first_step, len(steps)))
 
         self._maybe_optimize_time(steps, action_step_spans)
-        with record_function("request.convert"):
+        with profiling.span("request.convert"):
             warped = self._convert_with_time_warp(
                 steps, complete_motion_vector=complete_motion_vector)
         action_ranges = [
@@ -227,7 +228,7 @@ class MotionGenerator:
         full_arc = acs.full_arc_length
         arc_of_end = self._end_step_arc_length(acs)
 
-        with record_function("request.plan"):
+        with profiling.span("request.plan"):
             node_key = self._best_start_node(acs, frames, prev_node_key)
         frames, travelled, _ = self._generate_step(
             acs, node_key, frames, steps, travelled, is_last_step=False)
@@ -237,7 +238,7 @@ class MotionGenerator:
         while not self._is_end_state(node_type, acs, frames, travelled,
                                      arc_of_end, full_arc,
                                      len(steps)) and n < max_steps:
-            with record_function("request.plan"):
+            with profiling.span("request.plan"):
                 next_key, next_type = self._best_transition_node(
                     acs, node_key, frames, travelled, arc_of_end)
             if next_key is None:
@@ -285,7 +286,7 @@ class MotionGenerator:
         prefix = (frames[:steps[first_idx].start_frame]
                   if frames is not None else None)
         rebuilt = prefix if prefix is not None and len(prefix) else None
-        with record_function("request.ca_extra"):
+        with profiling.span("request.ca_extra"):
             for step in steps[first_idx:]:
                 prim = self._prim(step.node_key)
                 sc = compiled.empty_step_constraints(skel,

@@ -16,13 +16,13 @@ from typing import List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..models.skeleton import Skeleton, fk_global, fk_positions
 from ..ops import ik as ik_ops
 from ..ops import quat as quat_ops
 from ..ops import spline_path
 from ..utils import device as device_mod
+from ..utils import profiling
 from . import grounding
 
 # actions whose IK orientation constraints are ignored unless
@@ -290,7 +290,7 @@ def post_process_motion(skeleton: Skeleton, frames: np.ndarray, steps,
     if ik_constraints and config.get("activate_inverse_kinematics", True):
         interp = (int(ik_settings.get("interpolation_window", 120))
                   if ik_settings.get("activate_blending", True) else 0)
-        with record_function("request.ik"):
+        with profiling.span("request.ik"):
             frames = apply_ik_constraints(
                 skeleton, frames, ik_constraints,
                 interpolation_window=interp, n_iters=budget,
@@ -298,7 +298,7 @@ def post_process_motion(skeleton: Skeleton, frames: np.ndarray, steps,
                     ik_settings.get("optimize_orientation", True)),
                 device=device)
     if ik_trajectories and config.get("activate_inverse_kinematics", True):
-        with record_function("request.ik_trajectory"):
+        with profiling.span("request.ik_trajectory"):
             frames = apply_ik_trajectory_constraints(
                 skeleton, frames, ik_trajectories, n_iters=budget,
                 blend_window=int(ik_settings.get("transition_window", 60))

@@ -18,11 +18,11 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..models.graph import (NODE_TYPE_END, NODE_TYPE_STANDARD, StackedGraph,
                             TRANSITION_TYPE_IDS)
 from ..ops import align, bspline, kernels, quat, timewarp
+from ..utils import profiling
 
 
 @dataclasses.dataclass
@@ -192,13 +192,13 @@ def _random_step(g: StackedGraph, node_id, done, step_idx: int, n_steps: int,
     """The random walks' shared step: a latent from the node's GMM, its
     frames, and the transition (standard until the second-to-last step,
     then end) -> (s, frames, n_frames, next_id, done)."""
-    with record_function("walk.sample"):
+    with profiling.span("walk.sample"):
         s = sample_node_latent(g, node_id, draws.comp_gumbel[:, 0],
                                draws.normal[:, 0])
-    with record_function("walk.back_project"):
+    with profiling.span("walk.back_project"):
         frames, n_frames = back_project_node(g, node_id, s, max_step_frames,
                                              use_time)
-    with record_function("walk.advance"):
+    with profiling.span("walk.advance"):
         want_end = step_idx >= n_steps - 2
         type_id = torch.full_like(node_id, TRANSITION_TYPE_IDS[
             NODE_TYPE_END if want_end else NODE_TYPE_STANDARD])
@@ -207,6 +207,7 @@ def _random_step(g: StackedGraph, node_id, done, step_idx: int, n_steps: int,
     return s, frames, n_frames, next_id, done | ~found
 
 
+@profiling.span("random_walk", ranged=False)
 def random_walk(g: StackedGraph, start_ids: torch.Tensor, n_steps: int,
                 draws: Callable[[int], StepDraws], max_step_frames: int = 128,
                 max_total_frames: Optional[int] = None, window: int = 20,
@@ -233,7 +234,7 @@ def random_walk(g: StackedGraph, start_ids: torch.Tensor, n_steps: int,
         s, frames, n_frames, next_id, done = _random_step(
             g, state.node_id, state.done, t, n_steps, draws(t),
             max_step_frames, use_time)
-        with record_function("walk.append"):
+        with profiling.span("walk.append"):
             # the walk owns its buffer: append writes into it in place
             buffer, n_valid = align.append_frames(
                 state.buffer, state.n_valid, frames, n_frames, window,
@@ -254,6 +255,7 @@ def random_walk_crowd(g: StackedGraph, start_id, n_chars: int, n_steps: int,
     return random_walk(g, start, n_steps, draws, **kw)
 
 
+@profiling.span("random_walk", ranged=False)
 def random_walk_segments(g: StackedGraph, start_ids: torch.Tensor,
                          n_steps: int, draws: Callable[[int], StepDraws],
                          max_step_frames: int = 128, window: int = 20,
@@ -283,7 +285,7 @@ def random_walk_segments(g: StackedGraph, start_ids: torch.Tensor,
     frames = torch.stack(segs, dim=1)  # [C, S, T, D]
     n_frames = torch.stack(counts, dim=1)
 
-    with record_function("walk.align"):
+    with profiling.span("walk.align"):
         # chained alignment on the boundary frames only
         rows = torch.arange(c, device=dev)
         last_idx = torch.clamp(n_frames - 1, min=0).long()

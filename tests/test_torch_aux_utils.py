@@ -1,11 +1,8 @@
 """The port's host utilities against the JAX package's: jsonpath editing,
 both height maps on a grid of query points (the same heights exactly:
-both are the same float64 numpy), `Timer`, and `device_trace` /
-`annotate` on torch.profiler (a trace file in the directory, the
-annotated range in it)."""
+both are the same float64 numpy)."""
 
 import copy
-import glob
 import json
 import os
 
@@ -19,7 +16,6 @@ from morphablegraphs_tpu.utils import height_map as hmj  # noqa: E402
 from morphablegraphs_tpu.utils import jsonpath as jpj  # noqa: E402
 from morphablegraphs_tpu_torch.utils import height_map as hmt  # noqa: E402
 from morphablegraphs_tpu_torch.utils import jsonpath as jpt  # noqa: E402
-from morphablegraphs_tpu_torch.utils import profiling  # noqa: E402
 
 DEMO_INPUT = os.path.join(os.path.dirname(__file__), "..", "examples",
                           "demo_input.json")
@@ -78,30 +74,3 @@ def test_image_height_map_matches_jax(channels):
     fj = hmj.ImageHeightMap.from_image(pixels, 60.0, 40.0)
     assert [ft(x, z) for x, z in _queries()] == \
         [fj(x, z) for x, z in _queries()]
-
-
-def test_timer_spans_and_counts():
-    t = profiling.Timer()
-    for _ in range(2):
-        with t.span("step"):
-            pass
-    t.count("evals", 3)
-    t.count("evals")
-    assert set(t.spans) == {"step"} and t.spans["step"] >= 0.0
-    assert t.counts == {"evals": 4}
-    lines = t.report().splitlines()
-    assert lines[0].startswith("step: ") and lines[1] == "evals: 4"
-
-
-def test_device_trace_writes_an_annotated_trace(tmp_path):
-    with profiling.device_trace(None):  # no-op
-        pass
-    assert not list(tmp_path.iterdir())
-    with profiling.device_trace(str(tmp_path)):
-        with profiling.annotate("mg.region_under_test"):
-            torch.ones(8).sum()
-    traces = glob.glob(str(tmp_path / "*.pt.trace.json"))
-    assert len(traces) == 1
-    with open(traces[0]) as f:
-        events = json.load(f)["traceEvents"]
-    assert any(e.get("name") == "mg.region_under_test" for e in events)
