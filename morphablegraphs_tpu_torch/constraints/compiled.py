@@ -28,9 +28,10 @@ import numpy as np
 import torch
 
 from ..models.primitive import MotionPrimitive, back_project_spatial
-from ..models.skeleton import (Skeleton, _fk_tables, _rest_table, fk_global,
-                               fk_node, fk_root)
+from ..models.skeleton import (Skeleton, _fk_tables, device_tables,
+                               fk_global, fk_node, fk_root)
 from ..ops import align, bspline, quat, spline_path
+from ..ops.consts import constant
 
 MAX_KF = 8  # padded keyframe-constraint slots per step
 TRAJ_SAMPLES = 16  # canonical-frame samples for trajectory residuals
@@ -535,7 +536,7 @@ def _kf_residuals(sc, jpos, jori):
 
 
 def _forward(like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor([0.0, 0.0, 1.0], dtype=like.dtype, device=like.device)
+    return constant(align.REF_VECTOR, like.dtype, like.device)
 
 
 def _dir_residual(sc, q_dir):
@@ -1063,10 +1064,11 @@ def make_frozen_root_residuals_closed(skeleton: Skeleton,
                          "animated joint 0 (fk_root reads channels 3:7)")
     chain, ch_extra = ([], []) if ee_node is None \
         else _ee_chain(skeleton, ee_node)
-    ch_idx = list(range(7)) + [3 + 4 * a + j for a in ch_extra
-                               for j in range(4)]
     c = eigen_s.shape[0]
     dt, dev = eigen_s.dtype, eigen_s.device
+    ch_idx = constant(tuple(range(7)) + tuple(3 + 4 * a + j for a in ch_extra
+                                              for j in range(4)),
+                      torch.long, dev)
     b_all = bspline.basis_matrix(knots_s, _query_times(
         sc, use_traj or use_ca))  # [C, T, nb]
     e4 = eigen_s[..., :k_s].reshape(c, n_basis, n_dim, k_s)
@@ -1082,9 +1084,8 @@ def make_frozen_root_residuals_closed(skeleton: Skeleton,
                          jr_ch)  # [C, 4]
     fe7 = eigen_s[:, :7, :k_s]  # [C, 7, k]
     fmu7 = mean_s[:, :7]
-    off0 = torch.as_tensor(skeleton.offsets[0], dtype=dt, device=dev)
-    offs = torch.as_tensor(skeleton.offsets, dtype=dt, device=dev)
-    rest = torch.as_tensor(_rest_table(skeleton), dtype=dt, device=dev)
+    tables = device_tables(skeleton, dt, dev)
+    off0, offs, rest = tables["offset0"], tables["offsets"], tables["rest"]
     anim_idx = _fk_tables(skeleton)
 
     def root_positions(q_y, delta, rows7):

@@ -457,27 +457,54 @@ def _level_tables(skel: Skeleton):
             np.asarray(inverse))
 
 
+@functools.lru_cache(maxsize=None)
+def device_tables(skel: Skeleton, dtype: torch.dtype,
+                  device: torch.device) -> dict:
+    """The FK's host tables as tensors on `device`, their floats in `dtype`,
+    made once per skeleton, dtype and device and shared by every later call
+    (a host table copied to the card at each call is a synchronising copy,
+    which a CUDA graph cannot capture); callers never write into them.
+    offsets [n_nodes, 3], rest [n_nodes, 4] and the root's offset0 [3] and
+    rest0 [4]; fk_global's tables in its level order: level_offsets,
+    level_rest, level_animated [n_nodes, 1] (bool), level_quat (each node's
+    quaternion block, 0 where it has none), parent_pos and inverse
+    (`_level_tables`)."""
+    anim_idx = np.asarray(_fk_tables(skel))
+    order, _, parent_pos, inverse = _level_tables(skel)
+    animated = anim_idx[order] >= 0
+    rest = _rest_table(skel)
+
+    def tensor(a, dt=None):
+        with torch.inference_mode(False):
+            return torch.as_tensor(a, dtype=dt, device=device)
+
+    return dict(offsets=tensor(skel.offsets, dtype), rest=tensor(rest, dtype),
+                offset0=tensor(skel.offsets[0], dtype),
+                rest0=tensor(rest[0], dtype),
+                level_offsets=tensor(skel.offsets[order], dtype),
+                level_rest=tensor(rest[order], dtype),
+                level_animated=tensor(animated[:, None]),
+                level_quat=tensor(np.where(animated, anim_idx[order], 0)),
+                parent_pos=tensor(parent_pos), inverse=tensor(inverse))
+
+
 def fk_global(skel: Skeleton, frames: torch.Tensor):
     """Global transforms of every node.  frames [..., 3 + 4J] ->
     (positions [..., n_nodes, 3], orientations [..., n_nodes, 4]).
     The nodes of one depth are transformed together, each by the same
     per-node arithmetic as a node-by-node pass."""
-    anim_idx = np.asarray(_fk_tables(skel))
-    order, levels, parent_pos, inverse = _level_tables(skel)
-    dev, dt = frames.device, frames.dtype
+    levels = _level_tables(skel)[1]
+    tables = device_tables(skel, frames.dtype, frames.device)
     lead = frames.shape[:-1]
     quats = frames[..., 3:].reshape(lead + (skel.n_animated, 4))
-    animated = anim_idx[order] >= 0
-    rest = torch.as_tensor(_rest_table(skel)[order], dtype=dt, device=dev)
-    local_q = torch.where(
-        torch.as_tensor(animated[:, None], device=dev),
-        quats[..., torch.as_tensor(np.where(animated, anim_idx[order], 0),
-                                   device=dev), :], rest)
-    offsets = torch.as_tensor(skel.offsets[order], dtype=dt, device=dev)
+    local_q = torch.where(tables["level_animated"],
+                          quats[..., tables["level_quat"], :],
+                          tables["level_rest"])
+    offsets = tables["level_offsets"]
     r0, r1 = levels[0]
     pos = offsets[r0:r1] + frames[..., None, :3]
     ori = local_q[..., r0:r1, :]
-    parent = torch.as_tensor(parent_pos, device=dev)
+    parent = tables["parent_pos"]
     for a, b in levels[1:]:
         p_idx = parent[a - r1: b - r1]
         p_pos, p_ori = pos[..., p_idx, :], ori[..., p_idx, :]
@@ -485,7 +512,7 @@ def fk_global(skel: Skeleton, frames: torch.Tensor):
                         dim=-2)
         ori = torch.cat([ori, quat.multiply(p_ori, local_q[..., a:b, :])],
                         dim=-2)
-    inv = torch.as_tensor(inverse, device=dev)
+    inv = tables["inverse"]
     return pos[..., inv, :], ori[..., inv, :]
 
 
@@ -552,15 +579,12 @@ def fk_root(skel: Skeleton, frames: torch.Tensor):
     ori = the root's channel quaternion (its rest rotation when it is not
     animated).  frames [..., D] -> (pos [..., 3], ori [..., 4])."""
     a = _fk_tables(skel)[0]
-    off = torch.as_tensor(skel.offsets[0], dtype=frames.dtype,
-                          device=frames.device)
-    pos = off + frames[..., :3]
+    tables = device_tables(skel, frames.dtype, frames.device)
+    pos = tables["offset0"] + frames[..., :3]
     if a >= 0:
         ori = frames[..., 3 + 4 * a: 7 + 4 * a]
     else:
-        rest = torch.as_tensor(_rest_table(skel)[0], dtype=frames.dtype,
-                               device=frames.device)
-        ori = rest.expand(frames.shape[:-1] + (4,))
+        ori = tables["rest0"].expand(frames.shape[:-1] + (4,))
     return pos, ori
 
 

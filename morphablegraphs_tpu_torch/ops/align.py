@@ -8,14 +8,16 @@ import numpy as np
 import torch
 
 from . import quat
+from .consts import constant
 
 REF_VECTOR = (0.0, 0.0, 1.0)
+XZ_MASK = (1.0, 0.0, 1.0)
 
 
 def heading_angle(root_q: torch.Tensor) -> torch.Tensor:
     """Angle about +Y of the root's ground-plane heading, atan2(x, z)."""
-    ref = torch.tensor(REF_VECTOR, dtype=root_q.dtype, device=root_q.device)
-    v = quat.rotate_vec(quat.normalize(root_q), ref)
+    v = quat.rotate_vec(quat.normalize(root_q),
+                        constant(REF_VECTOR, root_q.dtype, root_q.device))
     return torch.atan2(v[..., 0], v[..., 2])
 
 
@@ -28,9 +30,7 @@ def node_aligning_2d_transform(prev_last: torch.Tensor,
         new_first[..., 3:7])
     q_y = quat.about_y(theta)
     delta = prev_last[..., :3] - quat.rotate_vec(q_y, new_first[..., :3])
-    mask = torch.tensor([1.0, 0.0, 1.0], dtype=delta.dtype,
-                        device=delta.device)
-    return q_y, delta * mask
+    return q_y, delta * constant(XZ_MASK, delta.dtype, delta.device)
 
 
 def transform_from_start_pose(position: torch.Tensor,

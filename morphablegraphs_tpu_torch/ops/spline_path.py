@@ -15,13 +15,15 @@ import math
 import numpy as np
 import torch
 
+from .consts import constant
+
 GRANULARITY = 1000  # reference ParameterizedSpline granularity
 MAX_PATH_POINTS = 32  # default padded control-point capacity of `build`
 
-_CR_BASE = np.array([[-1.0, 3.0, -3.0, 1.0],
-                     [2.0, -5.0, 4.0, -1.0],
-                     [-1.0, 0.0, 1.0, 0.0],
-                     [0.0, 2.0, 0.0, 0.0]], np.float32)
+_CR_BASE = ((-1.0, 3.0, -3.0, 1.0),
+            (2.0, -5.0, 4.0, -1.0),
+            (-1.0, 0.0, 1.0, 0.0),
+            (0.0, 2.0, 0.0, 0.0))
 
 
 @dataclasses.dataclass
@@ -113,8 +115,8 @@ def _eval_u(points: torch.Tensor, n_points: torch.Tensor,
     p = torch.stack(gathered, dim=-2)  # [..., Q, 4, 3]
     w = torch.stack([local ** 3, local ** 2, local, torch.ones_like(local)],
                     dim=-1)  # [..., Q, 4]
-    base = torch.as_tensor(_CR_BASE, device=points.device)
-    coef = torch.matmul(w, base)  # [..., Q, 4]
+    coef = torch.matmul(w, constant(_CR_BASE, torch.float32,
+                                    points.device))  # [..., Q, 4]
     return 0.5 * torch.sum(coef[..., None] * p, dim=-2)
 
 
@@ -294,8 +296,7 @@ def closest_points_advancing(sp: PathSpline, points: torch.Tensor,
     gp1 = sp.table_arc.shape[-1]
     min_arc = min_arc_length
     idx, floors = [], []
-    inf = torch.tensor(float("inf"), dtype=d2_all.dtype,
-                       device=d2_all.device)
+    inf = constant(float("inf"), d2_all.dtype, d2_all.device)
     for s in range(points.shape[-2]):
         valid = sp.table_arc >= (min_arc - 1e-6)[..., None]
         d2m = torch.where(valid, d2_all[..., s, :], inf)

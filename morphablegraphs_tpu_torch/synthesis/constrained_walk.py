@@ -25,7 +25,9 @@ over `full_walk_step`.  Per step and character:
      block through kernel B4; every LM form takes its GMM naturalness
      term from kernel B5 (the closed frozen form its gradient too, the
      exact and linearize forms through `kernels.gmm_nll`).  The JAX
-     lax.cond gate is a masked select per character, as under vmap;
+     lax.cond gate is a masked select per character, as under vmap.  On a
+     CUDA device the closed frozen form's gated stage is replayed as one
+     CUDA graph per crowd layout (`LM_GRAPHS`);
   4. the winner is back-projected with time warping, aligned and
      seam-smoothed (`kernels.emit_frames`: one kernel on a CUDA device), the
      travelled arc advances, and the next node is drawn.
@@ -45,7 +47,8 @@ from ..constraints import compiled
 from ..models.graph import (NODE_TYPE_END, NODE_TYPE_IDS, NODE_TYPE_STANDARD,
                             StackedGraph, TRANSITION_TYPE_IDS)
 from ..models.skeleton import Skeleton
-from ..ops import align, kernels, lm, quat, spline_path
+from ..ops import align, cuda_graphs, kernels, lm, quat, spline_path
+from ..ops.consts import constant
 from ..utils import profiling
 from . import walk as walk_mod
 
@@ -368,9 +371,9 @@ def _lm_mask(sc, cfg: WalkConfig) -> torch.Tensor:
     """The LM's residual mask: active slots of the families the walk
     evaluates (a slot of a family compiled out would degenerate to
     quality_scale * nll)."""
-    return compiled.active_mask(sc) * torch.as_tensor(
-        compiled.static_family_gate(cfg.use_traj, cfg.use_ca, cfg.use_ts),
-        device=sc.kf_active.device)
+    gate = compiled.static_family_gate(cfg.use_traj, cfg.use_ca, cfg.use_ts)
+    return compiled.active_mask(sc) * constant(
+        tuple(gate.tolist()), torch.float32, sc.kf_active.device)
 
 
 def lm_residual_fn(skeleton: Skeleton, g: StackedGraph, node_id, sc,
@@ -456,6 +459,41 @@ def _refine(skeleton, g, node_id, sc, s0, e0, cfg: WalkConfig,
             torch.minimum(e0, e_opt))
 
 
+def _lm_stage(skeleton, g, node_id, sc, s, err, cfg: WalkConfig,
+              root_only: bool):
+    """The gated LM refinement, stage walk.lm: `_refine`'s (s, err) where
+    the selection error err is at least cfg.lm_threshold, else s and err
+    as they came."""
+    s_ref, err_ref = _refine(skeleton, g, node_id, sc, s, err, cfg,
+                             root_only)
+    gate = err >= cfg.lm_threshold
+    return (torch.where(gate[:, None], s_ref, s),
+            torch.where(gate, err_ref, err))
+
+
+# walk.lm as one CUDA graph for each crowd layout (counters walk.lm.eager,
+# .graph_captures, .graph_replays)
+LM_GRAPHS = cuda_graphs.StageGraphs("walk.lm")
+
+
+def _lm_graph_key(skeleton, g: StackedGraph, node_id, cfg: WalkConfig,
+                  root_only: bool):
+    """What walk.lm depends on besides its inputs (`cuda_graphs`): the
+    skeleton, root_only, the whole WalkConfig and where the graph's tables
+    that the stage reads lie; None, to run it eagerly, on the CPU and for
+    the exact LM and the frozen linearize form."""
+    if node_id.device.type != "cuda" or not (
+            cfg.lm_frozen and cfg.lm_frozen_closed
+            and compiled.frozen_closed_supported(skeleton)):
+        return None
+    tables = (g.eigen_s, g.mean_s, g.knots_s, g.gmm_weights, g.gmm_means,
+              g.gmm_prec_chol)
+    return (skeleton, root_only, g.n_basis_max, g.n_dim, g.k_s_max,
+            tuple(getattr(cfg, f.name) for f in dataclasses.fields(cfg)),
+            tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+                  for t in tables))
+
+
 def full_walk_step(skeleton: Skeleton, g: StackedGraph,
                    path: spline_path.PathSpline, path_table: torch.Tensor,
                    state: WalkState, step_idx: int,
@@ -519,14 +557,14 @@ def full_walk_step(skeleton: Skeleton, g: StackedGraph,
             s, err = samples[rows, best], errors[rows, best]
     err_pre = err  # best-of-N selection error, before any LM
 
-    # ---- gated LM refinement
+    # ---- gated LM refinement: the frozen closed form on a CUDA device as
+    # one graph launch, after a key's first, eager, sight
     if cfg.lm_iters > 0:
         with profiling.span("walk.lm"):
-            s_ref, err_ref = _refine(skeleton, g, node, sc, s, err, cfg,
-                                     root_only)
-            gate = err >= cfg.lm_threshold
-            s = torch.where(gate[:, None], s_ref, s)
-            err = torch.where(gate, err_ref, err)
+            s, err = LM_GRAPHS.run(
+                lambda *a: _lm_stage(skeleton, g, *a, cfg, root_only),
+                (node, sc, s, err),
+                _lm_graph_key(skeleton, g, node, cfg, root_only))
 
     state, out = _emit_step(g, path, state, s, err, step_idx > 0,
                             cfg.max_step_frames, draws.trans_gumbel,
