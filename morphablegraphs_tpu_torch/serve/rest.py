@@ -77,7 +77,14 @@ class MGContext:
     names another.  `sampler` is handed to the MotionGenerator (the
     tests replay the JAX package's draws through it).  `ranks`, this
     process's `parallel.RankGroup`, splits every batch over the group's
-    ranks (one rank, or none: this process alone)."""
+    ranks (one rank, or none: this process alone).
+
+    `last_result` is the `MotionResult` of the last request this context
+    ran on the sequential path (None before the first): its steps' node
+    keys, latents, frame ranges, errors and filled constraint sets, for a
+    caller in the same process."""
+
+    last_result = None
 
     def __init__(self, graph: MotionStateGraph, config: Optional[dict] = None,
                  activate_joint_mapping: bool = False,
@@ -149,6 +156,7 @@ class MGContext:
             mg_input,
             activate_joint_mapping=self.activate_joint_mapping,
             activate_coordinate_transform=self.activate_coordinate_transform)
+        self.last_result = result
         out_skeleton = self.graph.skeleton
         out_frames = result.frames
         if self.target_skeleton is not None:

@@ -524,6 +524,7 @@ class MotionGenerator:
                        is_last_step):
         """Select, refine and emit one step, and record it."""
         t_step = time.time()
+        profiling.count("request.steps")
         graph = self.graph
         prim = self._prim(node_key)
         skel = graph.skeleton

@@ -291,6 +291,7 @@ def post_process_motion(skeleton: Skeleton, frames: np.ndarray, steps,
         interp = (int(ik_settings.get("interpolation_window", 120))
                   if ik_settings.get("activate_blending", True) else 0)
         with profiling.span("request.ik"):
+            profiling.count("request.ik.constraints", len(ik_constraints))
             frames = apply_ik_constraints(
                 skeleton, frames, ik_constraints,
                 interpolation_window=interp, n_iters=budget,
