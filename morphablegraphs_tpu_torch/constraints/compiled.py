@@ -498,6 +498,15 @@ def static_family_gate(use_traj: bool = True, use_ca: bool = True,
     return gate
 
 
+def family_gate(device, use_traj: bool = True, use_ca: bool = True,
+                use_ts: bool = False) -> torch.Tensor:
+    """`static_family_gate` as a float32 tensor on `device`, made once per
+    flags and device (`ops.consts`)."""
+    return constant(tuple(static_family_gate(use_traj, use_ca,
+                                             use_ts).tolist()),
+                    torch.float32, torch.device(device))
+
+
 def error_from_residuals(res: torch.Tensor) -> torch.Tensor:
     """Scalar error: the sum of residuals, except the trajectory and
     trajectory-set blocks enter as their mean when any entry is positive."""

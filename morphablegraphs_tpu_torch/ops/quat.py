@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from .consts import constant
+
 _EPS = 1e-12
 
 
@@ -16,8 +18,7 @@ def normalize(q: torch.Tensor) -> torch.Tensor:
 
 def conjugate(q: torch.Tensor) -> torch.Tensor:
     """[w, -x, -y, -z]: the inverse rotation of a unit quaternion."""
-    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype,
-                            device=q.device)
+    return q * constant((1.0, -1.0, -1.0, -1.0), q.dtype, q.device)
 
 
 def multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -9,8 +9,10 @@ JAX package's PRNG keys become pools [N, L] here.  The LM is the port's one
 LM, `ops/lm.lm_minimize`, crowd-shaped: a single start is C = 1, k starts
 are C = k; on a CUDA device it solves through kernel B2
 (`kernels.chol_solve`) and takes its naturalness term from kernel B5
-(`kernels.gmm_nll`).  The epilogue back-projects through the frame-emit
-kernel (`kernels.emit_frames`, B6's source).
+(`kernels.gmm_nll`), and the whole LM stage is replayed as one CUDA
+graph per primitive and constraint layout (`LM_GRAPHS`).  The epilogue
+back-projects through the frame-emit kernel (`kernels.emit_frames`, B6's
+source).
 
 Constraint sets reach this module as tensors with a leading [1] axis
 (`device_constraints`); the pool and the k starts see them expanded to
@@ -28,7 +30,8 @@ import torch
 from ..constraints import compiled
 from ..models.primitive import MotionPrimitive
 from ..models.skeleton import Skeleton
-from ..ops import align, kernels, lm as lm_ops, spline_path, timewarp
+from ..ops import (align, cuda_graphs, kernels, lm as lm_ops, spline_path,
+                   timewarp)
 from ..utils import profiling
 
 
@@ -123,23 +126,18 @@ def _gmm_nll(prim: MotionPrimitive, s: torch.Tensor) -> torch.Tensor:
                            g.prec_chol[None], mix)
 
 
-def refine_lm(skeleton: Skeleton, prim: MotionPrimitive,
-              sc: compiled.StepConstraints, s0: torch.Tensor,
-              n_iters: int = 10, error_scale: float = 1.0,
-              quality_scale: float = 0.1, init_lambda: float = 1e-3,
-              use_traj: bool = True, use_ca: bool = True,
-              use_ts: bool = False, families=None,
-              root_only: bool = False):
-    """LM from the starts s0 [C, L], one constraint set for all: the
-    residual of every active slot is error_scale * r + quality_scale *
-    (-log p(s)), inactive slots stay 0.  Returns (s_opt [C, L], the exact
-    constraint error of s_opt [C])."""
-    c = s0.shape[0]
-    rows = _rows(sc, c)
+def _lm_stage(skeleton: Skeleton, prim: MotionPrimitive,
+              rows: compiled.StepConstraints, s0: torch.Tensor,
+              n_iters: int, error_scale: float, quality_scale: float,
+              init_lambda: float, use_traj: bool, use_ca: bool, use_ts: bool,
+              families, root_only: bool):
+    """The stage request.lm: `refine_lm` on the set expanded to the rows
+    of s0 [C, L] -> (s_opt [C, L], the exact constraint error of s_opt
+    [C])."""
     gate = dict(use_traj=use_traj, use_ca=use_ca, use_ts=use_ts)
     fam = dict(gate, families=families, root_only=root_only)
-    active = compiled.active_mask(rows) * torch.as_tensor(
-        compiled.static_family_gate(**gate), device=s0.device)
+    active = compiled.active_mask(rows) * compiled.family_gate(s0.device,
+                                                               **gate)
 
     def residuals(s):
         res = compiled.evaluate_residuals(skeleton, prim, rows, s, **fam)
@@ -153,6 +151,56 @@ def refine_lm(skeleton: Skeleton, prim: MotionPrimitive,
     return s_opt, err
 
 
+# request.lm as one CUDA graph for each primitive and constraint layout
+# (counters request.lm.eager, .graph_captures, .graph_replays).  A service
+# sees every primitive of its graph under each of its family sets, with
+# and without a trajectory (the pick/carry/place service, 7 keys), more
+# keys than a crowd has sizes
+LM_GRAPHS = cuda_graphs.StageGraphs("request.lm")
+LM_GRAPHS.capacity = 32
+
+
+def _lm_graph_key(skeleton: Skeleton, prim: MotionPrimitive, device,
+                  n_iters: int, error_scale: float, quality_scale: float,
+                  init_lambda: float, use_traj: bool, use_ca: bool,
+                  use_ts: bool, families, root_only: bool):
+    """What request.lm depends on besides its inputs (`cuda_graphs`): the
+    skeleton, the LM's settings, the families and where the primitive's
+    tables that the stage reads lie; None, to run it eagerly, off a CUDA
+    device."""
+    if torch.device(device).type != "cuda":
+        return None
+    g = prim.gmm
+    tables = (prim.eigen_s, prim.mean_s, prim.knots_s, g.weights, g.means,
+              g.prec_chol)
+    return (skeleton, prim.n_basis, prim.n_dim, prim.n_spatial,
+            None if families is None else frozenset(families), root_only,
+            use_traj, use_ca, use_ts, n_iters, error_scale, quality_scale,
+            init_lambda,
+            tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+                  for t in tables))
+
+
+def refine_lm(skeleton: Skeleton, prim: MotionPrimitive,
+              sc: compiled.StepConstraints, s0: torch.Tensor,
+              n_iters: int = 10, error_scale: float = 1.0,
+              quality_scale: float = 0.1, init_lambda: float = 1e-3,
+              use_traj: bool = True, use_ca: bool = True,
+              use_ts: bool = False, families=None,
+              root_only: bool = False):
+    """LM from the starts s0 [C, L], one constraint set for all: the
+    residual of every active slot is error_scale * r + quality_scale *
+    (-log p(s)), inactive slots stay 0.  Returns (s_opt [C, L], the exact
+    constraint error of s_opt [C]).  On a CUDA device the stage is one
+    graph replay after a key's first, eager, sight (`LM_GRAPHS`)."""
+    settings = (n_iters, error_scale, quality_scale, init_lambda, use_traj,
+                use_ca, use_ts, families, root_only)
+    return LM_GRAPHS.run(
+        lambda rows, s: _lm_stage(skeleton, prim, rows, s, *settings),
+        (_rows(sc, s0.shape[0]), s0),
+        _lm_graph_key(skeleton, prim, s0.device, *settings))
+
+
 def _refine_starts(skeleton, prim, sc, starts, errs, threshold: float,
                    n_iters: int, error_scale: float, quality_scale: float,
                    **fam):
@@ -160,13 +208,15 @@ def _refine_starts(skeleton, prim, sc, starts, errs, threshold: float,
     LM when the best error is at or above threshold, keep the better of
     each start and its refinement, and return the best -> (s [L],
     error [])."""
-    if float(errs.min()) >= threshold:
+    if float(errs.min()) >= threshold:  # the stage's one sync
         s_ref, e_ref = refine_lm(skeleton, prim, sc, starts, n_iters,
                                  error_scale, quality_scale, **fam)
         starts = torch.where((e_ref < errs)[:, None], s_ref, starts)
         errs = torch.minimum(errs, e_ref)
-    j = torch.argmin(errs)
-    return starts[j], errs[j]
+    # a [1] index: indexing by a 0-dim tensor reads it on the host, which
+    # would wait here for the LM's device time
+    j = torch.argmin(errs)[None]
+    return starts[j][0], errs[j][0]
 
 
 def selection_params(skeleton: Skeleton, sc_host: compiled.StepConstraints,

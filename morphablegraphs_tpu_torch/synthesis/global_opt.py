@@ -83,8 +83,7 @@ def _chain_residuals(skeleton: Skeleton, prims: List[MotionPrimitive],
     set off); inactive slots are 0."""
     nll_fn = nll_fn or _WindowNll(prims)
     nll = nll_fn([torch.cat([a, g]) for a, g in zip(alphas, gammas)])
-    gate = torch.as_tensor(compiled.static_family_gate(),
-                           device=alphas[0].device)
+    gate = compiled.family_gate(alphas[0].device)
     all_res = []
     prev_last = None
     for i, (prim, sc, alpha) in enumerate(zip(prims, scs, alphas)):
