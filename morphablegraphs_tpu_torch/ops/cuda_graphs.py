@@ -2,21 +2,25 @@
 so that the host issues one graph launch where the stage's eager form
 issues thousands of small kernel launches.
 
-`StageGraphs(name).run(fn, inputs, key)` runs `fn(*inputs)`, where inputs
-is a tuple of tensors and dataclasses of tensors (nested dataclasses too)
-and fn returns a tuple of tensors.  A key of None runs fn eagerly.  Else
-the stage is keyed on `key` and the layout of the inputs (each tensor's
-shape, strides, dtype and device, every other leaf's value): a key runs
-eagerly the first time it is seen, which loads what the stage's kernels
-need, is captured the second time and replayed from then on.  Before each
-replay the inputs are copied into the graph's own buffers (a tensor that is
-a broadcast, a stride of 0, stays one there and is copied once); the
-outputs are handed out as clones, as the graph's own outputs are
-overwritten by its next replay.  The newest `capacity` keys are kept.
+`StageGraphs(name, capacity).run(fn, inputs, key, reads)` runs
+`fn(*inputs)`, where inputs is a tuple of tensors and dataclasses of
+tensors (nested dataclasses too) and fn returns a tuple of tensors.  A key
+of None, or inputs off a CUDA device, run fn eagerly.  Else the stage is
+keyed on `stage_key`: the caller's key (the settings fn closes over), the
+layout of the inputs (each tensor's shape, strides, dtype and device, every
+other leaf's value) and the placement of `reads`, every device tensor fn
+reads besides its inputs (model tables; each one's address, shape, strides
+and dtype).  A key runs eagerly the first time it is seen, which loads what
+the stage's kernels need, is captured the second time and replayed from
+then on.  Before each replay the inputs are copied into the graph's own
+buffers (a tensor that is a broadcast, a stride of 0, stays one there and
+is copied once); the outputs are handed out as clones, as the graph's own
+outputs are overwritten by its next replay.  The newest `capacity` keys
+are kept.
 
-fn must not synchronise with the host, and every device tensor it reads
-besides its inputs (model tables, cached constants) must stay where it was
-at capture: the key names them.  Replays run on the caller's current
+fn must not synchronise with the host, and must read no device tensor
+besides its inputs and `reads` whose place can change (constants made once
+per device, `ops.consts`, stay put).  Replays run on the caller's current
 stream, one caller at a time.
 
 Counters (`utils.profiling`): `<name>.eager`, `<name>.graph_captures`,
@@ -48,6 +52,14 @@ def _flatten(tree, leaves: list):
     if isinstance(tree, tuple):
         return (tuple,) + tuple(_flatten(v, leaves) for v in tree)
     return tree
+
+
+def stage_key(key, layout, reads=()):
+    """(key, the inputs' layout (`_flatten`), the placement of reads): what
+    a graph of the stage is captured for."""
+    return (key, layout,
+            tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+                  for t in reads))
 
 
 def _rebuild(tree, tensors):
@@ -90,10 +102,8 @@ class StageGraphs:
     newest `capacity` keys: a service that sees many crowd sizes keeps a
     bounded set."""
 
-    capacity = 8
-
-    def __init__(self, name: str):
-        self.name = name
+    def __init__(self, name: str, capacity: int = 8):
+        self.name, self.capacity = name, capacity
         self._entries = collections.OrderedDict()  # key -> None or _Graph
         self._streams = {}  # device -> its capture stream
 
@@ -101,14 +111,15 @@ class StageGraphs:
         """Forget every key and free its graph."""
         self._entries.clear()
 
-    def run(self, fn, inputs: tuple, key=None) -> tuple:
+    def run(self, fn, inputs: tuple, key=None, reads=()) -> tuple:
         """fn(*inputs): eagerly, or captured and replayed (the module's
         rules)."""
-        if key is None:
+        leaves = []
+        layout = _flatten(inputs, leaves)
+        if key is None or not all(t.is_cuda for t in leaves):
             profiling.count(self.name + ".eager")
             return fn(*inputs)
-        leaves = []
-        key = (key, _flatten(inputs, leaves))
+        key = stage_key(key, layout, reads)
         entry = self._entries.get(key, False)
         if entry is False:  # first sight
             self._entries[key] = None

@@ -403,7 +403,8 @@ def _check_cuda(name, *tensors):
 
 # the selection kernel's grid fills the card from here: on an H100 the width
 # this picks was the fastest of the six at every batch of 8 to 256
-# characters x 128 candidates timed by chip_smoke.py, and 1 lane at 1024
+# characters x 128 candidates over an arc table of 1008 rows, and 1 lane at
+# 1024
 MIN_WARPS_PER_SM = 8
 
 

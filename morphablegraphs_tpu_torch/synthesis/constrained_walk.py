@@ -48,7 +48,6 @@ from ..models.graph import (NODE_TYPE_END, NODE_TYPE_IDS, NODE_TYPE_STANDARD,
                             StackedGraph, TRANSITION_TYPE_IDS)
 from ..models.skeleton import Skeleton
 from ..ops import align, cuda_graphs, kernels, lm, quat, spline_path
-from ..ops.consts import constant
 from ..utils import profiling
 from . import walk as walk_mod
 
@@ -371,9 +370,8 @@ def _lm_mask(sc, cfg: WalkConfig) -> torch.Tensor:
     """The LM's residual mask: active slots of the families the walk
     evaluates (a slot of a family compiled out would degenerate to
     quality_scale * nll)."""
-    gate = compiled.static_family_gate(cfg.use_traj, cfg.use_ca, cfg.use_ts)
-    return compiled.active_mask(sc) * constant(
-        tuple(gate.tolist()), torch.float32, sc.kf_active.device)
+    return compiled.active_mask(sc) * compiled.family_gate(
+        sc.kf_active.device, cfg.use_traj, cfg.use_ca, cfg.use_ts)
 
 
 def lm_residual_fn(skeleton: Skeleton, g: StackedGraph, node_id, sc,
@@ -476,22 +474,16 @@ def _lm_stage(skeleton, g, node_id, sc, s, err, cfg: WalkConfig,
 LM_GRAPHS = cuda_graphs.StageGraphs("walk.lm")
 
 
-def _lm_graph_key(skeleton, g: StackedGraph, node_id, cfg: WalkConfig,
+def _lm_graph_key(skeleton, g: StackedGraph, cfg: WalkConfig,
                   root_only: bool):
-    """What walk.lm depends on besides its inputs (`cuda_graphs`): the
-    skeleton, root_only, the whole WalkConfig and where the graph's tables
-    that the stage reads lie; None, to run it eagerly, on the CPU and for
-    the exact LM and the frozen linearize form."""
-    if node_id.device.type != "cuda" or not (
-            cfg.lm_frozen and cfg.lm_frozen_closed
+    """What walk.lm closes over (`cuda_graphs`): the skeleton, root_only,
+    the graph's widths and the whole WalkConfig; None, to run it eagerly,
+    for the exact LM and the frozen linearize form."""
+    if not (cfg.lm_frozen and cfg.lm_frozen_closed
             and compiled.frozen_closed_supported(skeleton)):
         return None
-    tables = (g.eigen_s, g.mean_s, g.knots_s, g.gmm_weights, g.gmm_means,
-              g.gmm_prec_chol)
     return (skeleton, root_only, g.n_basis_max, g.n_dim, g.k_s_max,
-            tuple(getattr(cfg, f.name) for f in dataclasses.fields(cfg)),
-            tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
-                  for t in tables))
+            tuple(getattr(cfg, f.name) for f in dataclasses.fields(cfg)))
 
 
 def full_walk_step(skeleton: Skeleton, g: StackedGraph,
@@ -563,8 +555,9 @@ def full_walk_step(skeleton: Skeleton, g: StackedGraph,
         with profiling.span("walk.lm"):
             s, err = LM_GRAPHS.run(
                 lambda *a: _lm_stage(skeleton, g, *a, cfg, root_only),
-                (node, sc, s, err),
-                _lm_graph_key(skeleton, g, node, cfg, root_only))
+                (node, sc, s, err), _lm_graph_key(skeleton, g, cfg, root_only),
+                (g.eigen_s, g.mean_s, g.knots_s, g.gmm_weights, g.gmm_means,
+                 g.gmm_prec_chol))
 
     state, out = _emit_step(g, path, state, s, err, step_idx > 0,
                             cfg.max_step_frames, draws.trans_gumbel,

@@ -156,29 +156,7 @@ def _lm_stage(skeleton: Skeleton, prim: MotionPrimitive,
 # sees every primitive of its graph under each of its family sets, with
 # and without a trajectory (the pick/carry/place service, 7 keys), more
 # keys than a crowd has sizes
-LM_GRAPHS = cuda_graphs.StageGraphs("request.lm")
-LM_GRAPHS.capacity = 32
-
-
-def _lm_graph_key(skeleton: Skeleton, prim: MotionPrimitive, device,
-                  n_iters: int, error_scale: float, quality_scale: float,
-                  init_lambda: float, use_traj: bool, use_ca: bool,
-                  use_ts: bool, families, root_only: bool):
-    """What request.lm depends on besides its inputs (`cuda_graphs`): the
-    skeleton, the LM's settings, the families and where the primitive's
-    tables that the stage reads lie; None, to run it eagerly, off a CUDA
-    device."""
-    if torch.device(device).type != "cuda":
-        return None
-    g = prim.gmm
-    tables = (prim.eigen_s, prim.mean_s, prim.knots_s, g.weights, g.means,
-              g.prec_chol)
-    return (skeleton, prim.n_basis, prim.n_dim, prim.n_spatial,
-            None if families is None else frozenset(families), root_only,
-            use_traj, use_ca, use_ts, n_iters, error_scale, quality_scale,
-            init_lambda,
-            tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
-                  for t in tables))
+LM_GRAPHS = cuda_graphs.StageGraphs("request.lm", capacity=32)
 
 
 def refine_lm(skeleton: Skeleton, prim: MotionPrimitive,
@@ -195,10 +173,17 @@ def refine_lm(skeleton: Skeleton, prim: MotionPrimitive,
     graph replay after a key's first, eager, sight (`LM_GRAPHS`)."""
     settings = (n_iters, error_scale, quality_scale, init_lambda, use_traj,
                 use_ca, use_ts, families, root_only)
+    # the graph's key: what the stage closes over; its reads: the
+    # primitive's tables
+    key = (skeleton, prim.n_basis, prim.n_dim, prim.n_spatial, n_iters,
+           error_scale, quality_scale, init_lambda, use_traj, use_ca, use_ts,
+           root_only, None if families is None else frozenset(families))
+    g = prim.gmm
     return LM_GRAPHS.run(
         lambda rows, s: _lm_stage(skeleton, prim, rows, s, *settings),
-        (_rows(sc, s0.shape[0]), s0),
-        _lm_graph_key(skeleton, prim, s0.device, *settings))
+        (_rows(sc, s0.shape[0]), s0), key,
+        (prim.eigen_s, prim.mean_s, prim.knots_s, g.weights, g.means,
+         g.prec_chol))
 
 
 def _refine_starts(skeleton, prim, sc, starts, errs, threshold: float,

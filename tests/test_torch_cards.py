@@ -41,7 +41,7 @@ pytestmark = pytest.mark.cuda
 MODEL_ATOL = 1e-5  # relative to each field's scale
 N_CLIPS = 20
 REPS = 3  # timed batches after the one that warms
-# the serving cell's 8 trajectory requests (chip_smoke.py's phase 9)
+# the serving batch's 8 trajectory requests (the batch endpoint's crowd)
 TRAJECTORIES = [(20, 100), (-20, 100), (0, 120), (40, 90), (-40, 90),
                 (10, 140), (-10, 60), (30, 150)]
 

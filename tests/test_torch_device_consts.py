@@ -36,7 +36,7 @@ def uncached(monkeypatch):
     """Within: every helper builds its constants anew at each call."""
     def bypass():
         tables = sk.device_tables.__wrapped__
-        for mod in (align, spline_path, compiled, cw):
+        for mod in (align, spline_path, compiled):
             monkeypatch.setattr(mod, "constant", _fresh_constant)
         for mod in (sk, compiled):
             monkeypatch.setattr(mod, "device_tables", tables)
@@ -159,11 +159,12 @@ def _crowd(n_chars=4, n_steps=2, lm_frozen=True):
 
 @pytest.mark.parametrize("lm_frozen", [True, False])
 def test_the_lm_stage_runs_eagerly_on_the_cpu(lm_frozen):
-    """On the CPU walk.lm never captures a graph: every step's stage runs
-    eagerly and counts walk.lm.eager, the closed frozen form and the exact
-    LM alike."""
+    """On the CPU walk.lm never captures a graph, under a key or none:
+    every step's stage runs eagerly and counts walk.lm.eager, the closed
+    frozen form and the exact LM alike."""
     skel, g, paths, start, draws, cfg = _crowd(lm_frozen=lm_frozen)
-    assert cw._lm_graph_key(skel, g, start, cfg, True) is None
+    # the closed frozen form has a key, and runs eagerly all the same
+    assert (cw._lm_graph_key(skel, g, cfg, True) is None) == (not lm_frozen)
     before = profiling.counters()
     _, _, _, errors = cw.constrained_walk_full_crowd(
         skel, g, paths, start, len(draws), draws=lambda t: draws[t], cfg=cfg)

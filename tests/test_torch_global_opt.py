@@ -248,7 +248,7 @@ def test_global_opt_defaults_to_the_card(graphs, fn):
             got.optimize_time_over_steps(p_t, params, [(0, 3, 1.0)], 0.03)
 
 
-# the timed keyframe request of chip_smoke.py's phase 14 (the end keyframe
+# a timed keyframe request on the reference-scale model (the end keyframe
 # at 2.5 s, 30 samples, 8 LM iterations, 4 steps, global spatial mode
 # "all" from any error), for the probe below
 TIMED_REQUEST = {

@@ -1,6 +1,6 @@
 """The port's kernel twins against the JAX package's Pallas kernels (run in
 interpret mode on the CPU).  The kernels themselves are checked against the
-twins on the card by tests/test_torch_cuda.py and chip_smoke.py."""
+twins on the card by tests/test_torch_cuda.py."""
 
 import jax
 import jax.numpy as jnp

@@ -124,8 +124,8 @@ def test_graphed_stage_is_the_eager_stage(model, route, fresh_graphs,
     graphs_run = fresh_graphs.run
     steps = []
 
-    def checked(fn, inputs, key=None):
-        out = graphs_run(fn, inputs, key)
+    def checked(fn, inputs, key=None, reads=()):
+        out = graphs_run(fn, inputs, key, reads)
         eager = fn(*inputs)
         steps.append(all(torch.equal(a, b) for a, b in zip(out, eager)))
         return out

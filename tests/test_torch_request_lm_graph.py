@@ -14,6 +14,7 @@ the same at the configuration's 19 joints and standard settings:
 
 This file imports no JAX."""
 
+import dataclasses
 import inspect
 import json
 import pathlib
@@ -123,11 +124,21 @@ def _by_hand(skel, prim, sc, s0, kw):
         skel, prim, rows, s_opt, **fam))
 
 
-def _key(skel, prim, device, kw):
-    return generator._lm_graph_key(
-        skel, prim, device, kw["n_iters"], kw["error_scale"],
-        kw["quality_scale"], kw["init_lambda"], kw["use_traj"],
-        kw["use_ca"], kw["use_ts"], kw["families"], kw["root_only"])
+def _key(skel, prim, sc, s0, kw):
+    """The key request.lm's graphs are kept under for refine_lm's
+    arguments (`cuda_graphs.stage_key` of what refine_lm hands
+    `LM_GRAPHS.run`); the stage itself is not run."""
+    keys = []
+
+    def run(fn, inputs, key=None, reads=()):
+        keys.append(cuda_graphs.stage_key(
+            key, cuda_graphs._flatten(inputs, []), reads))
+        return s0, s0.new_zeros(s0.shape[:1])
+
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(generator.LM_GRAPHS, "run", run)
+        generator.refine_lm(skel, prim, sc, s0, **kw)
+    return keys[0]
 
 
 # ---------------------------------------------------------------------------
@@ -145,11 +156,31 @@ def cpu_cases(cpu_calls):
     return _cases(cpu_calls)
 
 
-def test_key_is_none_on_the_cpu(cpu_cases):
-    skel, prim, _, s0, kw = cpu_cases["walk"]
-    assert _key(skel, prim, s0.device, kw) is None
-    assert _key(skel, prim, "cpu", kw) is None
-    assert _key(skel, prim, torch.device("cuda"), kw) is not None
+def test_stage_graphs_run_cpu_inputs_eagerly_under_any_key(cpu_cases):
+    """On the CPU a stage runs as under no key: `StageGraphs` runs CPU
+    inputs eagerly whatever key and reads it is handed, and keeps no key
+    for them."""
+    skel, prim, sc, s0, kw = cpu_cases["walk"]
+    graphs = cuda_graphs.StageGraphs("test.cpu")
+    rows = generator._rows(sc, s0.shape[0])
+
+    def stage(rows, s):
+        return s + 1.0, rows.kf_active.sum(-1)
+
+    before = profiling.counters()
+    for key, reads in ((("k",), ()), (("k",), (prim.eigen_s,)),
+                       (_key(skel, prim, sc, s0, kw), (prim.mean_s,))):
+        for _ in range(3):
+            out = graphs.run(stage, (rows, s0), key, reads)
+            assert all(torch.equal(a, b)
+                       for a, b in zip(out, stage(rows, s0)))
+    after = profiling.counters()
+    assert {k: after.get(k, 0) - before.get(k, 0)
+            for k in ("test.cpu.eager", "test.cpu.graph_captures",
+                      "test.cpu.graph_replays")} == {
+        "test.cpu.eager": 9, "test.cpu.graph_captures": 0,
+        "test.cpu.graph_replays": 0}
+    assert not graphs._entries
 
 
 @pytest.mark.parametrize("case", ["walk", "keyframe"])
@@ -169,6 +200,7 @@ def test_cpu_stage_is_eager_and_the_lm_by_hand(cpu_cases, case):
 
 VARIANTS = {
     "primitive": None,  # the keyframe step's primitive
+    "moved_table": None,  # the primitive's eigenvectors at a new address
     "families": dict(families=frozenset()),
     "root_only": dict(root_only=False),
     "n_iters": dict(n_iters=5),
@@ -178,26 +210,28 @@ VARIANTS = {
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
 def test_key_separates_what_the_stage_depends_on(cpu_cases, variant):
-    skel, prim, _, _, kw = cpu_cases["walk"]
-    dev = torch.device("cuda")  # the key reads no tensor's values
-    base = _key(skel, prim, dev, kw)
-    if VARIANTS[variant] is None:
+    skel, prim, sc, s0, kw = cpu_cases["walk"]
+    base = _key(skel, prim, sc, s0, kw)
+    if variant == "primitive":
         other_prim = cpu_cases["keyframe"][1]
         assert other_prim.name != prim.name
-        other = _key(skel, other_prim, dev, kw)
+        other = _key(skel, other_prim, sc, s0, kw)
+    elif variant == "moved_table":
+        moved = dataclasses.replace(prim, eigen_s=prim.eigen_s.clone())
+        assert torch.equal(moved.eigen_s, prim.eigen_s)
+        other = _key(skel, moved, sc, s0, kw)
     else:
-        other = _key(skel, prim, dev, dict(kw, **VARIANTS[variant]))
+        other = _key(skel, prim, sc, s0, dict(kw, **VARIANTS[variant]))
     assert other != base
 
 
 def test_key_is_equal_for_equal_arguments(cpu_cases):
-    skel, prim, _, _, kw = cpu_cases["walk"]
-    dev = torch.device("cuda")
+    skel, prim, sc, s0, kw = cpu_cases["walk"]
     same = dict(kw, families=set(kw["families"]),
                 n_iters=int(kw["n_iters"]))
-    assert _key(skel, prim, dev, kw) == _key(skel, prim, dev, same)
-    assert hash(_key(skel, prim, dev, kw)) == hash(_key(skel, prim, dev,
-                                                        same))
+    key = _key(skel, prim, sc, s0, kw)
+    assert key == _key(skel, prim, sc, s0, same)
+    assert hash(key) == hash(_key(skel, prim, sc, s0, same))
 
 
 @pytest.mark.parametrize("flags", [(True, True, False), (True, False, False),
@@ -241,10 +275,11 @@ def served(cuda):
     seen = set()
     run = generator.LM_GRAPHS.run
 
-    def watch(fn, inputs, key=None):
+    def watch(fn, inputs, key=None, reads=()):
         if key is not None:
-            seen.add((key, cuda_graphs._flatten(inputs, [])))
-        return run(fn, inputs, key)
+            seen.add(cuda_graphs.stage_key(
+                key, cuda_graphs._flatten(inputs, []), reads))
+        return run(fn, inputs, key, reads)
 
     before = profiling.counters()
     with pytest.MonkeyPatch.context() as m:
