@@ -40,18 +40,19 @@
 //   |y_k|^2 share one warp reduction.
 // * Warps per block follow the grid (warp_chol.cuh): 256 blocks of 4 rows at
 //   1024 rows, one row a block for a serving batch of 8.
+// The per-component arithmetic (the y pass, the online logsumexp, the
+// gradient pass of the generic layout) is gmm_row.cuh's, which the request
+// path's exact LM (request_lm.cu) shares.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "gmm_row.cuh"
 #include "warp_chol.cuh"
 
 namespace {
-
-constexpr float LOG_2PI = 1.8378770664093453f;
-constexpr unsigned FULL = 0xffffffffu;
 
 // Copy one component's P [d, d] into buf with row stride s (asynchronous;
 // the caller commits and waits): 16 bytes a copy where the rows stay dense
@@ -67,13 +68,6 @@ __device__ __forceinline__ void stage(float* buf, const float* P, int d,
     for (int idx = lane; idx < d * d; idx += 32)
       __pipeline_memcpy_async(buf + idx + (idx / d) * (s - d), P + idx, 4);
   }
-}
-
-// Entry i of a vector spread over the lanes' registers (NE a lane), from
-// its lane; a select, so that no register array is indexed at run time.
-template <int NE>
-__device__ __forceinline__ float lane_entry(const float (&v)[NE], int i) {
-  return __shfl_sync(FULL, (NE == 1 || i < 32) ? v[0] : v[NE - 1], i % 32);
 }
 
 // DC > 0: d == DC at compile time, 16 <= DC <= 32 and a multiple of 4 (a
@@ -145,30 +139,13 @@ __global__ void gmm_scores_kernel(const float* __restrict__ x,
     __syncwarp();
 
     // y_e = sum_i diff_i P[i, e]: lane e walks down column e
-    float y[NE], part = 0.f;
-#pragma unroll
-    for (int q = 0; q < NE; ++q) {
-      const int e = on[q] ? lane + 32 * q : 0;
-      float a0 = 0.f, a1 = 0.f;
-      int i = 0;
-#pragma unroll
-      for (; i + 1 < d; i += 2) {
-        a0 = fmaf(lane_entry(diff, i), P[i * s + e], a0);
-        a1 = fmaf(lane_entry(diff, i + 1), P[(i + 1) * s + e], a1);
-      }
-      if (i < d) a0 = fmaf(lane_entry(diff, i), P[i * s + e], a0);
-      y[q] = on[q] ? a0 + a1 : 0.f;
-      part += on[q] ? logf(fabsf(P[e * s + e])) - 0.5f * y[q] * y[q] : 0.f;
-    }
-    const float lp = mg::warp_sum(part) - 0.5f * (float)d * LOG_2PI + log_w;
+    float y[NE];
+    const float part = mg::gmm_y_pass<NE>(diff, P, d, s, on, lane, y);
+    const float lp = mg::gmm_component_lp(mg::warp_sum(part), d, log_w);
 
     // online logsumexp: rescale what is kept when the maximum moves
-    const float mx_new = fmaxf(mx, lp);
-    const bool none = mx_new == ninf;  // every component so far at -inf
-    const float keep = none ? 1.f : expf(mx - mx_new);
-    const float w = none ? 0.f : expf(lp - mx_new);
-    mx = mx_new;
-    se = fmaf(se, keep, w);
+    float keep, w;
+    mg::gmm_lse_step(lp, mx, se, keep, w);
 
     if (grad == nullptr) {
       // value only: no gradient pass
@@ -181,26 +158,14 @@ __global__ void gmm_scores_kernel(const float* __restrict__ x,
 #pragma unroll
       for (int e = 0; e < DC; e += 4) {
         const float4 v = Pi[e / 4];
-        a0 = fmaf(v.x, lane_entry(y, e), a0);
-        a1 = fmaf(v.y, lane_entry(y, e + 1), a1);
-        a0 = fmaf(v.z, lane_entry(y, e + 2), a0);
-        a1 = fmaf(v.w, lane_entry(y, e + 3), a1);
+        a0 = fmaf(v.x, mg::lane_entry(y, e), a0);
+        a1 = fmaf(v.y, mg::lane_entry(y, e + 1), a1);
+        a0 = fmaf(v.z, mg::lane_entry(y, e + 2), a0);
+        a1 = fmaf(v.w, mg::lane_entry(y, e + 3), a1);
       }
       gacc[0] = fmaf(gacc[0], keep, w * (a0 + a1));
     } else {
-#pragma unroll
-      for (int q = 0; q < NE; ++q) {
-        const int i = on[q] ? lane + 32 * q : 0;
-        float a0 = 0.f, a1 = 0.f;
-        int e = 0;
-#pragma unroll
-        for (; e + 1 < d; e += 2) {
-          a0 = fmaf(P[i * s + e], lane_entry(y, e), a0);
-          a1 = fmaf(P[i * s + e + 1], lane_entry(y, e + 1), a1);
-        }
-        if (e < d) a0 = fmaf(P[i * s + e], lane_entry(y, e), a0);
-        gacc[q] = fmaf(gacc[q], keep, w * (a0 + a1));
-      }
+      mg::gmm_grad_pass<NE>(P, d, s, on, y, lane, keep, w, gacc);
     }
     __syncwarp();  // the next round's copies overwrite this buffer
   }

@@ -15,7 +15,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..ops import quat
+from ..ops import consts, quat
 
 
 @dataclasses.dataclass(frozen=True)
@@ -464,6 +464,8 @@ def device_tables(skel: Skeleton, dtype: torch.dtype,
     made once per skeleton, dtype and device and shared by every later call
     (a host table copied to the card at each call is a synchronising copy,
     which a CUDA graph cannot capture); callers never write into them.
+    Plain tensors even when first asked for inside a torch.func transform
+    (`consts.plain`), so a kernel may read their storage.
     offsets [n_nodes, 3], rest [n_nodes, 4] and the root's offset0 [3] and
     rest0 [4]; fk_global's tables in its level order: level_offsets,
     level_rest, level_animated [n_nodes, 1] (bool), level_quat (each node's
@@ -475,7 +477,7 @@ def device_tables(skel: Skeleton, dtype: torch.dtype,
     rest = _rest_table(skel)
 
     def tensor(a, dt=None):
-        with torch.inference_mode(False):
+        with consts.plain():
             return torch.as_tensor(a, dtype=dt, device=device)
 
     return dict(offsets=tensor(skel.offsets, dtype), rest=tensor(rest, dtype),

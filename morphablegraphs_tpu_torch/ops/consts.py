@@ -6,6 +6,7 @@ so every caller computes the same numbers as with a fresh one."""
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -16,6 +17,17 @@ def constant(values, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """`values` (a number or nested tuples of numbers) as a tensor on
     `device`, the same object at every call with these arguments: callers
     never write into it.  Made outside inference mode, so that autograd may
-    save it wherever it is used."""
-    with torch.inference_mode(False):
+    save it wherever it is used, and outside any torch.func transform
+    (`plain`)."""
+    with plain():
         return torch.tensor(values, dtype=dtype, device=device)
+
+
+@contextlib.contextmanager
+def plain():
+    """A context in which a new tensor is a plain one, to be cached: outside
+    inference mode, and outside any torch.func transform the caller runs
+    under (a tensor made inside `jvp` is that level's wrapper, which keeps
+    no storage once the transform returns)."""
+    with torch.inference_mode(False), torch._C._DisableFuncTorch():
+        yield

@@ -63,9 +63,12 @@ def _declare(lib):
                                     i, vp]
     lib.mg_emit_frames.argtypes = [vp] * 10 + [i] * 8 + [vp]
     lib.mg_gmm_scores.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, vp]
+    lib.mg_request_lm.argtypes = [vp, vp, vp, vp]
+    lib.mg_request_lm_check.argtypes = [vp, i]
     for fn in (lib.mg_score_loco, lib.mg_score_loco_ee, lib.mg_chol_solve,
                lib.mg_lm_delta, lib.mg_back_project, lib.mg_emit_frames,
-               lib.mg_gmm_scores):
+               lib.mg_gmm_scores, lib.mg_request_lm,
+               lib.mg_request_lm_check):
         fn.restype = i
     return lib
 

@@ -18,6 +18,11 @@
   `emit_frames` (the same source): the whole frame-emit stage of a walk
   step in one launch, the basis weights from the time function inside the
   kernel, then the aligning transform and the seam smoothing.
+* `request_lm` (csrc/request_lm.cu): the request path's exact LM, all of
+  its iterations and the final constraint error, one block a start, for
+  the sets whose families it evaluates (`generator.lm_kernel_covers`); its
+  plain version is the eager stage `synthesis.generator._lm_stage`, which the request
+  path runs on the CPU.
 
 A wrapper given CPU tensors runs the twin; given CUDA tensors it launches
 the kernel, or raises `KernelError` (a failed build, a CUDA error, a
@@ -29,6 +34,8 @@ tracer (`utils.profiling`: `kernel.launches.<kernel>`,
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
 import functools
 import math
 
@@ -36,7 +43,7 @@ import numpy as np
 import torch
 
 from ..utils import profiling
-from . import align, bspline, cuda_build, gmm as gmm_ops
+from . import align, bspline, consts, cuda_build, gmm as gmm_ops
 from .cuda_build import KernelError
 
 N_EVAL = 19  # goal kf + dir + 16 traj samples + frame 0 (alignment)
@@ -47,10 +54,11 @@ TRAJ_SAMPLES = 16
 DAMP_FLOOR_REL = 1e-2  # LM damping floor, relative to max(diag JtJ)
 _PI = math.pi
 
-# the kernels whose launches are counted (B1, B3, B2, B4, B5, B6, emit)
+# the kernels whose launches are counted (B1, B3, B2, B4, B5, B6, emit,
+# the request path's LM)
 KERNELS = ("score_locomotion_candidates", "score_locomotion_candidates_ee",
            "chol_solve", "lm_delta", "gmm_scores", "crowd_back_project",
-           "emit_frames")
+           "emit_frames", "request_lm")
 LAUNCHES = "kernel.launches."
 ERRORS = "kernel.errors."
 
@@ -917,6 +925,219 @@ def emit_frames(alphas: torch.Tensor, eigen: torch.Tensor, mean: torch.Tensor,
             int(bool(has_prev)), int(window), stream), "emit_frames launch")
     _launched("emit_frames")
     return out, new_last
+
+
+# ---------------------------------------------------------------------------
+# The request path's exact LM
+# ---------------------------------------------------------------------------
+
+# the set's fields the kernel reads (row 0 of a set with a leading axis), by
+# their path in the set; the trajectory's are absent without a spline
+REQUEST_LM_SET_FIELDS = (
+    "kf_active", "kf_node", "kf_pos", "kf_pos_mask", "kf_quat", "kf_has_quat",
+    "kf_frame", "kf_weight", "dir_active", "dir_target", "dir_frame",
+    "dir_weight", "la_active", "rt_active", "jr_active", "pose_active",
+    "traj_active", "traj_node", "traj_min_arc", "traj_weight",
+    "traj_range_start", "traj_range_end", "traj.points", "traj.n_points",
+    "traj.table_u", "traj.table_arc", "traj.table_points",
+    "traj.unconstrained", "has_prev", "prev_last", "start_q", "start_delta",
+    "n_canonical")
+# every pointer argument in the kernel's order (`enum Ptr` of the source)
+REQUEST_LM_POINTERS = (
+    ("eigen", "mean", "knots", "gmm_w", "gmm_mu", "gmm_prec", "parents",
+     "anim", "offsets", "rest") + REQUEST_LM_SET_FIELDS
+    + ("s0", "s_out", "err_out"))
+_REQUEST_LM_DTYPES = {"kf_node": torch.long, "traj_node": torch.long,
+                      "traj.n_points": torch.int32, "parents": torch.int32,
+                      "anim": torch.int32, "traj.unconstrained": torch.bool}
+
+
+@functools.lru_cache(maxsize=None)
+def _request_lm_chains(skeleton):
+    """(the most channels a query row through an ancestor chain reads: the
+    root translation and the quaternion of each animated node on it, the
+    deepest chain) of a skeleton."""
+    from ..models import skeleton as sk_mod
+    anim = sk_mod._fk_tables(skeleton)
+    tbl, depth = sk_mod._chain_tables(skeleton)
+    widest = max(3 + 4 * sum(1 for n in row if n >= 0 and anim[n] >= 0)
+                 for row in tbl)
+    return widest, depth
+
+
+def request_lm_entries(skeleton, root_only: bool) -> int:
+    """The channel entries of a step's query rows at most: the first
+    coefficient row's 7, the direction's 4, and 8 keyframe rows and 16
+    trajectory samples of the widest chain (7 channels root_only)."""
+    widest = 7 if root_only else _request_lm_chains(skeleton)[0]
+    return 11 + (8 + TRAJ_SAMPLES) * widest
+
+
+def _request_lm_sizes(skeleton, prim, g1: int) -> tuple:
+    """The sizes among the kernel's ints, in the source's `enum Int` order
+    from I_L to I_G1 (g1: arc samples of the path table, 0 without)."""
+    return (prim.n_latent, prim.n_spatial, prim.n_basis, prim.n_dim,
+            prim.knots_s.shape[-1], skeleton.n_nodes,
+            prim.gmm.weights.shape[-1], g1)
+
+
+@functools.lru_cache(maxsize=None)
+def _request_lm_takes(skeleton, sizes: tuple, root_only: bool,
+                      device: torch.device) -> bool:
+    lib = cuda_build.load_library()
+    ints = (1, *sizes, 1, 1, 1, int(sizes[-1] > 0), int(root_only),
+            request_lm_entries(skeleton, root_only), 0, 0, 0)
+    with torch.cuda.device(device):
+        return lib.mg_request_lm_check(
+            (ctypes.c_int * len(ints))(*ints),
+            _request_lm_chains(skeleton)[1]) == 0
+
+
+def request_lm_takes(skeleton, prim, g1: int, root_only: bool,
+                     device: torch.device) -> bool:
+    """Whether the kernel takes this skeleton, primitive and path table
+    (g1 arc samples, 0 without a path) on the CUDA device: the library's
+    own check (one tangent a lane, chains and tables within its arrays,
+    its shared memory within the device's), once per sizes and device."""
+    return _request_lm_takes(skeleton,
+                             _request_lm_sizes(skeleton, prim, g1),
+                             bool(root_only), device)
+
+
+def _request_lm_skeleton(skeleton, device: torch.device) -> dict:
+    """The skeleton tables the kernel reads, each made once per device:
+    parents and each node's quaternion block (-1 without one) as int32, the
+    FK's offsets [n, 3] and rest rotations [n, 4] as float32."""
+    from ..models import skeleton as sk_mod
+    tables = sk_mod.device_tables(skeleton, torch.float32, device)
+    return dict(
+        parents=consts.constant(tuple(int(v) for v in skeleton.parents),
+                                torch.int32, device),
+        anim=consts.constant(tuple(int(v) for v in sk_mod._fk_tables(
+            skeleton)), torch.int32, device),
+        offsets=tables["offsets"], rest=tables["rest"])
+
+
+@dataclasses.dataclass
+class RequestLmArgs:
+    """A launch of `request_lm`: the tensors of REQUEST_LM_POINTERS by name
+    (None for the trajectory's without a spline), the ints and the floats
+    of the source's `enum Int` and `enum Flt`."""
+
+    tensors: dict
+    ints: tuple
+    floats: tuple
+
+
+def _set_leaf(sc, path: str):
+    obj = sc
+    for part in path.split("."):
+        obj = None if obj is None else getattr(obj, part)
+    return obj
+
+
+def _request_lm_inputs(prim, sc, row=True) -> dict:
+    """The primitive's tables and each field of the set (its row 0 with
+    row; None for the trajectory's without a spline), by
+    REQUEST_LM_POINTERS' names."""
+    tensors = dict(eigen=prim.eigen_s, mean=prim.mean_s, knots=prim.knots_s,
+                   gmm_w=prim.gmm.weights, gmm_mu=prim.gmm.means,
+                   gmm_prec=prim.gmm.prec_chol)
+    for name in REQUEST_LM_SET_FIELDS:
+        leaf = _set_leaf(sc, name)
+        tensors[name] = leaf[0] if row and leaf is not None else leaf
+    return tensors
+
+
+def _request_lm_bad(tensors: dict, device) -> list:
+    """The names of the tensors the kernel cannot read as they are: of
+    another type or device, or not dense (the precision factors are read
+    through their strides, as a loaded mixture holds them transposed)."""
+    bad = []
+    for name, t in tensors.items():
+        if t is None:
+            continue
+        want = _REQUEST_LM_DTYPES.get(name, torch.float32)
+        dense = name == "gmm_prec" or t.is_contiguous()
+        if t.dtype != want or t.device != device or not dense:
+            bad.append(name)
+    return bad
+
+
+def request_lm_reads(prim, sc) -> bool:
+    """Whether the kernel reads the primitive's tables and the fields of
+    the set sc (one set, a leading [1] axis) in place: each of its type, on
+    the set's device, dense (so is each field's row 0), and the mixture
+    over the latent."""
+    return (prim.gmm.means.shape[-1] == prim.n_latent
+            and not _request_lm_bad(_request_lm_inputs(prim, sc, row=False),
+                                    sc.kf_active.device))
+
+
+def pack_request_lm(skeleton, prim, sc, s0: torch.Tensor, n_iters: int,
+                    error_scale: float, quality_scale: float,
+                    init_lambda: float, use_dir: bool, use_traj: bool,
+                    root_only: bool) -> RequestLmArgs:
+    """The kernel's arguments for refine_lm's stage: the primitive's and
+    the skeleton's tables, row 0 of each field of the set sc (whose leading
+    axis is the starts' or 1: one set for every start), the starts s0
+    [C, L] and the outputs (s_opt [C, L], err [C], empty).  Only views of
+    what the stage is handed: nothing is copied.  use_dir: "dir" is among
+    the families; use_traj: the trajectory family's gate."""
+    dev = s0.device
+    tensors = _request_lm_inputs(prim, sc)
+    tensors.update(_request_lm_skeleton(skeleton, dev))
+    has_traj = bool(use_traj) and sc.traj is not None
+    c, n_lat = s0.shape
+    tensors.update(s0=s0, s_out=torch.empty((c, n_lat), dtype=s0.dtype,
+                                            device=dev),
+                   err_out=torch.empty((c,), dtype=s0.dtype, device=dev))
+    tensors = {name: tensors[name] for name in REQUEST_LM_POINTERS}
+    bad = _request_lm_bad(tensors, dev)
+    if bad:
+        raise ValueError(f"request_lm: {', '.join(bad)} must be dense, of "
+                         f"the kernel's types, on {dev}")
+    g1 = sc.traj.table_arc.shape[-1] if has_traj else 0
+    ints = (c, *_request_lm_sizes(skeleton, prim, g1),
+            int(n_iters), int(bool(use_dir)),
+            int(bool(use_traj)), int(has_traj), int(bool(root_only)),
+            request_lm_entries(skeleton, root_only),
+            *tensors["gmm_prec"].stride())
+    return RequestLmArgs(tensors, ints, (float(error_scale),
+                                         float(quality_scale),
+                                         float(init_lambda), DAMP_FLOOR_REL))
+
+
+@_counts_errors
+def request_lm(args: RequestLmArgs):
+    """The exact LM of `pack_request_lm`'s arguments in one launch ->
+    (s_opt [C, L], the exact constraint error of s_opt [C]).  CUDA tensors
+    only: the plain version is the eager stage that refine_lm runs on the
+    CPU (`synthesis.generator._lm_stage`).  A set with a node index out of
+    range stops the kernel with a device fault, which the next
+    synchronising call raises (as PyTorch's index checks on the card)."""
+    t = args.tensors
+    dev = t["s0"].device
+    if dev.type == "cpu":
+        raise ValueError("request_lm: the plain version of the kernel is "
+                         "synthesis.generator._lm_stage")
+    if dev.type != "cuda":
+        raise KernelError(f"no kernel for device {dev}")
+    out = (t["s_out"], t["err_out"])
+    if args.ints[0] == 0:
+        return out
+    lib = cuda_build.load_library()
+    ptrs = (ctypes.c_void_p * len(REQUEST_LM_POINTERS))(*(
+        None if t[n] is None else t[n].data_ptr()
+        for n in REQUEST_LM_POINTERS))
+    ints = (ctypes.c_int * len(args.ints))(*args.ints)
+    floats = (ctypes.c_float * len(args.floats))(*args.floats)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        cuda_build.check(lib.mg_request_lm(ptrs, ints, floats, stream),
+                         "request_lm launch")
+    _launched("request_lm")
+    return out
 
 
 def reset_launch_counts():

@@ -7,10 +7,12 @@ epilogue (back-projection, alignment, the travelled-arc update).
 The pool is drawn by the caller (`MotionGenerator`'s sampler hook), so the
 JAX package's PRNG keys become pools [N, L] here.  The LM is the port's one
 LM, `ops/lm.lm_minimize`, crowd-shaped: a single start is C = 1, k starts
-are C = k; on a CUDA device it solves through kernel B2
+are C = k.  On a CUDA device a set whose families the kernel `request_lm`
+evaluates (`lm_kernel_covers`) runs the whole LM in that one kernel; any
+other set runs the eager stage, which solves through kernel B2
 (`kernels.chol_solve`) and takes its naturalness term from kernel B5
-(`kernels.gmm_nll`), and the whole LM stage is replayed as one CUDA
-graph per primitive and constraint layout (`LM_GRAPHS`).  The epilogue
+(`kernels.gmm_nll`).  Either stage is replayed as one CUDA graph per
+primitive and constraint layout (`LM_GRAPHS`).  The epilogue
 back-projects through the frame-emit kernel (`kernels.emit_frames`, B6's
 source).
 
@@ -29,7 +31,7 @@ import torch
 
 from ..constraints import compiled
 from ..models.primitive import MotionPrimitive
-from ..models.skeleton import Skeleton
+from ..models.skeleton import Skeleton, _fk_tables
 from ..ops import (align, cuda_graphs, kernels, lm as lm_ops, spline_path,
                    timewarp)
 from ..utils import profiling
@@ -151,6 +153,40 @@ def _lm_stage(skeleton: Skeleton, prim: MotionPrimitive,
     return s_opt, err
 
 
+def _lm_kernel_stage(skeleton: Skeleton, prim: MotionPrimitive,
+                     rows: compiled.StepConstraints, s0: torch.Tensor,
+                     n_iters: int, error_scale: float, quality_scale: float,
+                     init_lambda: float, use_traj: bool, use_ca: bool,
+                     use_ts: bool, families, root_only: bool):
+    """`_lm_stage` as one launch of the kernel `request_lm` (CUDA tensors,
+    a set that `lm_kernel_covers`) -> (s_opt [C, L], err [C])."""
+    return kernels.request_lm(kernels.pack_request_lm(
+        skeleton, prim, rows, s0, n_iters, error_scale, quality_scale,
+        init_lambda, "dir" in families, use_traj, root_only))
+
+
+def lm_kernel_covers(skeleton: Skeleton, prim: MotionPrimitive,
+                     sc: compiled.StepConstraints, use_ca: bool,
+                     use_ts: bool, families, root_only: bool) -> bool:
+    """Whether request.lm runs as the kernel `request_lm` on a CUDA device,
+    from what its graph key observes: no collision avoidance and no
+    trajectory set, single-slot families at most the direction (the
+    keyframes and the trajectory, on or off, root_only or not), tables and
+    set fields the kernel reads in place and, for a set on a CUDA device,
+    a skeleton, primitive and path table whose sizes the kernel's library
+    takes.  Every other set runs the eager stage."""
+    if use_ca or use_ts or families is None or not set(families) <= {"dir"}:
+        return False
+    if root_only and _fk_tables(skeleton)[0] > 0:
+        return False  # the eager stage refuses it
+    if not kernels.request_lm_reads(prim, sc):
+        return False
+    dev = sc.kf_active.device
+    g1 = 0 if sc.traj is None else sc.traj.table_arc.shape[-1]
+    return dev.type != "cuda" or kernels.request_lm_takes(
+        skeleton, prim, g1, root_only, dev)
+
+
 # request.lm as one CUDA graph for each primitive and constraint layout
 # (counters request.lm.eager, .graph_captures, .graph_replays).  A service
 # sees every primitive of its graph under each of its family sets, with
@@ -169,10 +205,17 @@ def refine_lm(skeleton: Skeleton, prim: MotionPrimitive,
     """LM from the starts s0 [C, L], one constraint set for all: the
     residual of every active slot is error_scale * r + quality_scale *
     (-log p(s)), inactive slots stay 0.  Returns (s_opt [C, L], the exact
-    constraint error of s_opt [C]).  On a CUDA device the stage is one
-    graph replay after a key's first, eager, sight (`LM_GRAPHS`)."""
+    constraint error of s_opt [C]).  On a CUDA device a set that
+    `lm_kernel_covers` runs as the kernel `request_lm`, any other as the
+    eager stage (counter request.lm.fallback, on every device); either is
+    one graph replay after a key's first sight (`LM_GRAPHS`)."""
     settings = (n_iters, error_scale, quality_scale, init_lambda, use_traj,
                 use_ca, use_ts, families, root_only)
+    covered = lm_kernel_covers(skeleton, prim, sc, use_ca, use_ts, families,
+                               root_only)
+    if not covered:
+        profiling.count("request.lm.fallback")
+    stage = _lm_kernel_stage if covered and s0.is_cuda else _lm_stage
     # the graph's key: what the stage closes over; its reads: the
     # primitive's tables
     key = (skeleton, prim.n_basis, prim.n_dim, prim.n_spatial, n_iters,
@@ -180,7 +223,7 @@ def refine_lm(skeleton: Skeleton, prim: MotionPrimitive,
            root_only, None if families is None else frozenset(families))
     g = prim.gmm
     return LM_GRAPHS.run(
-        lambda rows, s: _lm_stage(skeleton, prim, rows, s, *settings),
+        lambda rows, s: stage(skeleton, prim, rows, s, *settings),
         (_rows(sc, s0.shape[0]), s0), key,
         (prim.eigen_s, prim.mean_s, prim.knots_s, g.weights, g.means,
          g.prec_chol))

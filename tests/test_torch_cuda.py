@@ -569,6 +569,9 @@ GENERAL_QUAT = (0.9659258, 0.0, 0.2588190, 0.0)  # 30 degrees about Y
 EE = dict(pallas_ee=EE_JOINT, lm_frozen=True, frozen_ee=EE_JOINT)
 B1, B3 = "score_locomotion_candidates", "score_locomotion_candidates_ee"
 REQUEST_KERNELS = ("chol_solve", "gmm_scores", "emit_frames")
+# the sequential request path: its exact LM runs as the kernel request_lm
+# for the sets it covers (`generator.lm_kernel_covers`)
+REQUEST_PATH_KERNELS = ("request_lm", "emit_frames")
 # name -> (WalkConfig settings, LM iterations, the step sets, teacher
 # forcing, the kernels the card's walk launches and those it does not).
 # The ee walks start from errors of ~1e4 (the keyframe is far from any pose
@@ -920,7 +923,10 @@ def _request_case(cuda, name, monkeypatch):
         b = generate("cpu")
         before = kernels.launch_counts()
         a = generate(cuda)
-        _assert_launched(before, REQUEST_KERNELS)
+        # every set of the ca request has collision avoidance or a
+        # trajectory set: its LMs run the eager stage (B2, B5)
+        _assert_launched(before, REQUEST_KERNELS if name == "request_ca"
+                         else REQUEST_PATH_KERNELS)
         _assert_requests_match(name, a, b, None if name == "request_timed"
                                else [generate("cpu", 1 + e)
                                      for e in NUDGES])
@@ -996,7 +1002,7 @@ def _cluster_case(cuda, monkeypatch, tmp_path):
                     sampler=_host_sampler(graphs["cpu"], 7)
                 ).generate_motion(mg_input)
             pools[d + ".result"] = res
-        _assert_launched(before, REQUEST_KERNELS)
+        _assert_launched(before, REQUEST_PATH_KERNELS)
         a, b = pools[str(cuda) + ".result"], pools["cpu.result"]
         _assert_requests_match("cluster_tree", a, b)
         card, cpu = pools[str(cuda)], pools["cpu"]
@@ -1068,7 +1074,7 @@ def _package_case(cuda, tmp_path):
             return out
         gen._transition_gmm = counted
         results[str(dev)] = gen.generate_motion(WALK_INPUT)
-    _assert_launched(before, REQUEST_KERNELS)
+    _assert_launched(before, REQUEST_PATH_KERNELS)
     a, b = results[str(cuda)], results["cpu"]
     _assert_requests_match("package", a, b)
     assert (str(cuda), True) in conditioned
@@ -1140,7 +1146,7 @@ def _planner_case(cuda):
         cpu = states("cpu")
         before = kernels.launch_counts()
         card = states(cuda)
-        _assert_launched(before, REQUEST_KERNELS)
+        _assert_launched(before, REQUEST_PATH_KERNELS)
         nudged = [states("cpu", 1 + e) for e in NUDGES]
         assert labels(card) == labels(cpu)
         for i, (a, b) in enumerate(zip(card, cpu)):

@@ -294,7 +294,13 @@ def served(cuda):
 
 @pytest.fixture(scope="module")
 def card_cases(served):
-    return _cases(served["calls"])
+    """The walk and keyframe steps (sets the kernel `request_lm` covers),
+    and the walk step with collision avoidance (a set the eager stage
+    runs)."""
+    cases = _cases(served["calls"])
+    skel, prim, sc, s0, kw = cases["walk"]
+    cases["walk_ca"] = (skel, prim, sc, s0, dict(kw, use_ca=True))
+    return cases
 
 
 @pytest.fixture
@@ -321,19 +327,30 @@ def _refine(case):
     return out
 
 
+def _stage(case):
+    """The stage refine_lm runs on the card for the case's set: the kernel
+    `request_lm` for a set it covers, else the eager stage."""
+    skel, prim, sc, s0, kw = case
+    covered = generator.lm_kernel_covers(skel, prim, sc, kw["use_ca"],
+                                         kw["use_ts"], kw["families"],
+                                         kw["root_only"])
+    return generator._lm_kernel_stage if covered else generator._lm_stage
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("c", [1, 3])
-@pytest.mark.parametrize("case", ["walk", "keyframe"])
+@pytest.mark.parametrize("case", ["walk", "keyframe", "walk_ca"])
 def test_graphed_stage_is_the_eager_stage(card_cases, case, c,
                                           fresh_graphs):
     """The first sight runs eagerly, the second captures and replays, the
-    third replays: each returns, bit for bit, the eager stage's (s_opt,
-    err), and a replay's outputs stay as they were after the next one
-    (clones, not the graph's own outputs)."""
+    third replays: each returns, bit for bit, the stage's (s_opt, err) run
+    directly (the kernel's for the walk and keyframe sets, the eager
+    stage's for walk_ca), and a replay's outputs stay as they were after
+    the next one (clones, not the graph's own outputs)."""
     args = _starts(card_cases[case], c)
     skel, prim, sc, s0, kw = args
-    eager = generator._lm_stage(skel, prim, generator._rows(sc, c), s0,
-                                **kw)
+    assert (_stage(args) is generator._lm_stage) == (case == "walk_ca")
+    eager = _stage(args)(skel, prim, generator._rows(sc, c), s0, **kw)
     before = profiling.counters()
     outs = [_refine(args) for _ in range(3)]
     kept = [tuple(t.clone() for t in out) for out in outs]
@@ -347,12 +364,13 @@ def test_graphed_stage_is_the_eager_stage(card_cases, case, c,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["walk", "keyframe"])
+@pytest.mark.parametrize("case", ["walk", "keyframe", "walk_ca"])
 def test_graphed_stage_counts_the_kernels_an_eager_stage_runs(
         card_cases, case, fresh_graphs, monkeypatch):
     """Three graphed runs (eager, capture + replay, replay) launch every
-    kernel (B2 and B5 among them) as often as three eager runs; a cache of
-    no keys runs every stage eagerly."""
+    kernel (request_lm for the walk and keyframe sets; B2 and B5 for
+    walk_ca, the eager stage) as often as three eager runs; a cache of no
+    keys runs every stage eagerly."""
     args = card_cases[case]
     before = profiling.counters()
     graphed = [_refine(args) for _ in range(3)]
@@ -365,7 +383,10 @@ def test_graphed_stage_counts_the_kernels_an_eager_stage_runs(
     assert counts_graphed["request.lm.graph_replays"] == 2
     assert (counts_eager["request.lm.eager"],
             counts_eager["request.lm.graph_replays"]) == (3, 0)
-    for name in ("chol_solve", "gmm_scores"):
+    ran = (("chol_solve", "gmm_scores") if case == "walk_ca"
+           else ("request_lm",))
+    assert (_stage(args) is generator._lm_stage) == (case == "walk_ca")
+    for name in ran:
         assert counts_eager[kernels.LAUNCHES + name] > 0, name
     for name in kernels.KERNELS:
         key = kernels.LAUNCHES + name
@@ -393,13 +414,15 @@ def test_a_second_primitive_captures_its_own_graph(card_cases,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["walk", "keyframe"])
+@pytest.mark.parametrize("case", ["walk", "keyframe", "walk_ca"])
 def test_the_eager_stage_never_synchronises(card_cases, case, fresh_graphs,
                                             monkeypatch):
     """The stage makes no synchronising CUDA call (a capture could not hold
-    one): run eagerly under the sync debug mode, every call site it names
-    is listed."""
-    stage = generator._lm_stage
+    one): run eagerly under the sync debug mode (the kernel's stage for the
+    walk and keyframe sets, the eager stage for walk_ca), every call site
+    it names is listed."""
+    stage = _stage(card_cases[case])
+    assert (stage is generator._lm_stage) == (case == "walk_ca")
     sites = set()
 
     def watched(*a, **kw):
@@ -416,7 +439,7 @@ def test_the_eager_stage_never_synchronises(card_cases, case, fresh_graphs,
         return out
 
     monkeypatch.setattr(fresh_graphs, "capacity", 0)
-    monkeypatch.setattr(generator, "_lm_stage", watched)
+    monkeypatch.setattr(generator, stage.__name__, watched)
     before = profiling.counters()
     _refine(card_cases[case])
     assert _added(before)["request.lm.eager"] == 1
