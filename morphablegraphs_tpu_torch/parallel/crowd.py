@@ -34,6 +34,7 @@ from ..models.skeleton import Skeleton
 from ..ops import spline_path
 from ..synthesis import constrained_walk as cw
 from ..synthesis import walk as walk_mod
+from ..utils import profiling
 from . import group as group_mod
 
 
@@ -98,6 +99,13 @@ def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     return torch.cat(parts).to(x.device)
 
 
+def _gather_outputs(out: tuple, group) -> tuple:
+    """Every output's rows of every rank (`all_gather_rows`), under the
+    span `crowd.gather`."""
+    with profiling.span("crowd.gather", ranged=False):
+        return tuple(all_gather_rows(o, group) for o in out)
+
+
 def crowd_walk_sharded(devices: Sequence, g: StackedGraph, start_id: int,
                        n_chars: int, draws: Callable[[int],
                                                      walk_mod.StepDraws],
@@ -114,8 +122,7 @@ def crowd_walk_sharded(devices: Sequence, g: StackedGraph, start_id: int,
     out = walk_mod.random_walk_crowd(
         g.to(dev), start_id, n_chars // world, n_steps,
         _draws_on(draws, dev, group), max_step_frames=max_step_frames)
-    return out if group is None else tuple(all_gather_rows(o, group)
-                                           for o in out)
+    return out if group is None else _gather_outputs(out, group)
 
 
 def constrained_crowd_sharded(devices: Sequence, skeleton: Skeleton,
@@ -158,5 +165,5 @@ def constrained_crowd_sharded(devices: Sequence, skeleton: Skeleton,
     if status_group is not None:
         group_mod.agree(status_group, error)
     if group is not None:
-        out = tuple(all_gather_rows(o, group) for o in out)
+        out = _gather_outputs(out, group)
     return tuple(o[:n_chars] for o in out)

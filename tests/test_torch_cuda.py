@@ -1422,10 +1422,56 @@ def _ranks_case(cuda, tmp_path):
     _report("ranks_on_one_card", "model gap", max(gaps.values()), GROUP_ATOL)
 
 
+def _pfnn_case(cuda):
+    """The PFNN crowd (`synthesis.pfnn_crowd`) at the published widths (X
+    342, Y 311, hidden 512, 31 joints), 8 characters x 40 frames on their
+    own paths, on the card (the frame step replayed as a CUDA graph from
+    its third frame) against the CPU: frames within 1e-3 (the closed
+    loop's float32 GEMMs sum in another order), frame counts equal."""
+    import json
+    import pathlib
+    import sys
+    root = pathlib.Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    from morphablegraphs_tpu_torch.models import pfnn
+    from morphablegraphs_tpu_torch.synthesis import pfnn_crowd
+    from morphablegraphs_tpu_torch.utils import profiling
+    from portbench import generate, model_pfnn
+    config = json.loads((root / "portbench/configs/pfnn_holden.json")
+                        .read_text())
+    arrays = model_pfnn.arrays(config, 3000000019)
+    pts = generate.paths(5, 8, dict(path_points=6, segment_cm=400.0,
+                                    heading0=0.6, turn=0.4))
+    gait = torch.zeros(8, 6)
+    gait[:5, 1] = 1.0
+    gait[5:, 2] = 1.0
+    phase = torch.linspace(0.0, 0.9, 8)
+    speed = torch.where(gait[:, 2] > 0, 300.0, 150.0)
+    skel = pfnn.skeleton_of(model_pfnn.JOINTS)
+    out = {}
+    for dev in ("cpu", cuda):
+        model = pfnn.load_from_arrays(arrays["weights"], arrays["means"],
+                                      device=dev)
+        paths = spline_path.stack_paths([spline_path.build(
+            p, unconstrained_dims=(1,), granularity=256, device=dev)
+            for p in pts])
+        before = profiling.counters().get("pfnn.graph_replays", 0)
+        frames, n = pfnn_crowd.pfnn_crowd_walk(
+            model, paths, gait.to(dev), phase.to(dev), 40, speed.to(dev),
+            skeleton=skel)
+        out[str(dev)] = (frames.cpu(), n.cpu(),
+                         profiling.counters().get("pfnn.graph_replays", 0)
+                         - before)
+    (f_cpu, n_cpu, _), (f_gpu, n_gpu, replays) = out["cpu"], out[str(cuda)]
+    assert torch.equal(n_cpu, n_gpu) and replays >= 38
+    assert bool(torch.isfinite(f_gpu).all())
+    torch.testing.assert_close(f_gpu, f_cpu, rtol=0, atol=1e-3)
+
+
 ENTRY_POINTS = sorted(WALK_CASES) + [
-    "batch", "boundary_rows", "cluster_tree", "package", "planner",
-    "random_walk", "ranks_on_one_card", "request_ca", "request_timed",
-    "train"]
+    "batch", "boundary_rows", "cluster_tree", "package", "pfnn_crowd",
+    "planner", "random_walk", "ranks_on_one_card", "request_ca",
+    "request_timed", "train"]
 
 
 @pytest.mark.cuda
@@ -1445,6 +1491,8 @@ def test_entry_point_on_card_matches_cpu(cuda, path, monkeypatch, tmp_path):
         _package_case(cuda, tmp_path)
     elif path == "planner":
         _planner_case(cuda)
+    elif path == "pfnn_crowd":
+        _pfnn_case(cuda)
     elif path == "batch":
         _batch_case(cuda, monkeypatch)
     elif path == "ranks_on_one_card":

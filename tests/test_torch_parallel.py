@@ -28,6 +28,7 @@ from morphablegraphs_tpu_torch.ops import spline_path as spt  # noqa: E402
 from morphablegraphs_tpu_torch.parallel import crowd as pct  # noqa: E402
 from morphablegraphs_tpu_torch.synthesis import constrained_walk as cwt  # noqa: E402
 from morphablegraphs_tpu_torch.synthesis import walk as wt  # noqa: E402
+from morphablegraphs_tpu_torch.utils import profiling  # noqa: E402
 
 WORLD = 4
 N_STEPS = 3
@@ -92,8 +93,12 @@ def _rank_main(rank: int, tmp: str):
     try:
         inputs = torch.load(os.path.join(tmp, "inputs.pt"),
                             weights_only=False)
-        torch.save(_run_all(inputs, dist.group.WORLD),
-                   os.path.join(tmp, f"out{rank}.pt"))
+        profiling.reset()
+        out = _run_all(inputs, dist.group.WORLD)
+        # the crowds' output gathers, one span a call
+        out["gather_spans"] = sum(s[1] == "crowd.gather" for s in
+                                  profiling.snapshot()["spans"])
+        torch.save(out, os.path.join(tmp, f"out{rank}.pt"))
     finally:
         dist.destroy_process_group()
 
@@ -169,6 +174,13 @@ def test_random_crowd_over_four_ranks_matches_one_process_and_jax(runs):
     for c, n in enumerate(np.asarray(nv)):
         np.testing.assert_allclose(b_t[c, :n].numpy(), buf[c, :n],
                                    atol=JAX_FRAMES_ATOL)
+
+
+def test_crowd_gathers_are_spanned_on_every_rank(runs):
+    """Each rank records one `crowd.gather` span per sharded crowd call
+    (two constrained crowds and one random one)."""
+    _, _, ranks = runs
+    assert [r["gather_spans"] for r in ranks] == [3] * WORLD
 
 
 @pytest.mark.parametrize("case", ["dtw", "dtw_mean"])
